@@ -1,0 +1,49 @@
+"""Synthetic evaluation data with the real target datasets' interface
+(numpy copy of cmda_tpu.data.synthetic.SyntheticTarget, same draws for the
+same seed, so both packages see identical samples)."""
+from __future__ import annotations
+
+import numpy as np
+
+
+class SyntheticTarget:
+    """DSEC/DarkZurich stand-in: image / events / isr (+ label in test).
+
+    ``crop_size`` is (w, h), as in the JAX package."""
+
+    def __init__(self, *, crop_size=(512, 512), length: int = 64,
+                 seed: int = 1, with_events: bool = True,
+                 test_mode: bool = False, num_classes: int = 19):
+        self.h, self.w = crop_size[1], crop_size[0]
+        self.length = length
+        self.seed = seed
+        self.with_events = with_events
+        self.test_mode = test_mode
+        self.num_classes = num_classes
+
+    def __len__(self):
+        return self.length
+
+    def load(self, idx, rng=None):
+        g = np.random.default_rng(self.seed * 100003 + idx)
+        out = {
+            "image": g.normal(size=(self.h, self.w, 3)).astype(np.float32),
+            "isr": np.clip(g.normal(size=(self.h, self.w, 1)), -1, 1
+                           ).astype(np.float32).repeat(3, axis=-1),
+        }
+        if self.with_events:
+            ev = np.clip(g.normal(size=(self.h, self.w, 1)), -1, 1)
+            ev[np.abs(ev) < 0.8] = 0.0
+            out["events"] = ev.astype(np.float32).repeat(3, axis=-1)
+        if self.test_mode:
+            out["label"] = g.integers(0, self.num_classes,
+                                      size=(self.h, self.w)).astype(np.int32)
+        return out
+
+    def __getitem__(self, idx):
+        return self.load(idx)
+
+
+def collate(samples: list) -> dict:
+    """List of dicts of numpy arrays -> dict of batch-stacked arrays."""
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}

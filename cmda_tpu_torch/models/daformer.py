@@ -1,0 +1,168 @@
+"""DAFormer decode heads (mirrors cmda_tpu.models.daformer), NCHW.
+
+Per-scale linear embed to ``embed_dim`` channels, bilinear upsample of every
+scale to the stride-4 grid, channel concat in scale order, a depthwise-
+separable ASPP (dilations 1/6/12/18, BN+ReLU, no image pool) with a 3x3
+bottleneck, then Dropout2d + a 1x1 classifier in float32.
+
+Parameter names are the reference mmseg DAFormerHeadFusion keys:
+``embed_layers_image.{i}.proj``, ``fuse_layer_image.aspp_modules.{i}``
+(``.conv``/``.bn``, or ``.depthwise_conv``/``.pointwise_conv``),
+``fuse_layer_image.bottleneck`` and ``conv_seg``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .common import ConvBNReLU
+
+
+@dataclass(frozen=True)
+class DAFormerHeadConfig:
+    in_channels: Sequence[int] = (64, 128, 320, 512)
+    embed_dim: int = 256
+    channels: int = 256
+    num_classes: int = 19
+    dropout_ratio: float = 0.1
+    aspp_dilations: Sequence[int] = (1, 6, 12, 18)
+    fusion_type: str = "aspp"  # only 'aspp' (sepaspp) is ported
+
+
+class SepConvBNReLU(nn.Module):
+    """mmcv DepthwiseSeparableConvModule: depthwise (conv+BN+ReLU) then
+    pointwise (conv+BN+ReLU)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
+                 dilation: int = 1):
+        super().__init__()
+        self.depthwise_conv = ConvBNReLU(in_channels, in_channels,
+                                         kernel_size, dilation=dilation,
+                                         groups=in_channels)
+        self.pointwise_conv = ConvBNReLU(in_channels, features, 1)
+
+    def forward(self, x):
+        return self.pointwise_conv(self.depthwise_conv(x))
+
+
+class SepASPP(nn.Module):
+    """Depthwise-separable ASPP + 3x3 bottleneck (ASPPWrapper, pool=False)."""
+
+    def __init__(self, in_channels: int, channels: int,
+                 dilations: Sequence[int] = (1, 6, 12, 18)):
+        super().__init__()
+        self.aspp_modules = nn.ModuleList([
+            ConvBNReLU(in_channels, channels, 1) if d == 1
+            else SepConvBNReLU(in_channels, channels, 3, dilation=d)
+            for d in dilations])
+        self.bottleneck = ConvBNReLU(len(dilations) * channels, channels, 3)
+
+    def forward(self, x):
+        return self.bottleneck(torch.cat([m(x) for m in self.aspp_modules],
+                                         dim=1))
+
+
+class MLPEmbed(nn.Module):
+    """Per-scale linear embedding over channels (reference ``MLP.proj``)."""
+
+    def __init__(self, in_channels: int, embed_dim: int):
+        super().__init__()
+        self.proj = nn.Linear(in_channels, embed_dim)
+
+    def forward(self, x):
+        return self.proj(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+class DAFormerDecoder(nn.Module):
+    """Embed + upsample + concat + fuse -> pre-classifier features.
+
+    ``stream`` suffixes the parameter names the way the reference fusion
+    head does (``embed_layers_image``, ``fuse_layer_image``)."""
+
+    def __init__(self, cfg: DAFormerHeadConfig, stream: str | None = None):
+        super().__init__()
+        if cfg.fusion_type != "aspp":
+            raise NotImplementedError(
+                f"fusion_type {cfg.fusion_type!r} is not ported yet")
+        sfx = f"_{stream}" if stream else ""
+        self._embed_name, self._fuse_name = f"embed_layers{sfx}", f"fuse_layer{sfx}"
+        setattr(self, self._embed_name, nn.ModuleList([
+            MLPEmbed(c, cfg.embed_dim) for c in cfg.in_channels]))
+        setattr(self, self._fuse_name, SepASPP(
+            cfg.embed_dim * len(cfg.in_channels), cfg.channels,
+            cfg.aspp_dilations))
+
+    def decode(self, feats):
+        target = feats[0].shape[2:]
+        embeds = []
+        for layer, f in zip(getattr(self, self._embed_name), feats):
+            e = layer(f)
+            if e.shape[2:] != target:
+                e = F.interpolate(e.float(), size=tuple(target),
+                                  mode="bilinear", align_corners=False
+                                  ).to(e.dtype)
+            embeds.append(e)
+        return getattr(self, self._fuse_name)(torch.cat(embeds, dim=1))
+
+    def forward(self, feats):
+        return self.decode(feats)
+
+
+class Classifier(nn.Conv2d):
+    """Dropout2d + 1x1 conv classifier (``cls_seg``), in float32 whatever
+    the compute dtype."""
+
+    def __init__(self, channels: int, num_classes: int,
+                 dropout_ratio: float = 0.1):
+        super().__init__(channels, num_classes, 1)
+        self.dropout = nn.Dropout2d(dropout_ratio)
+
+    def forward(self, x):
+        with torch.autocast(x.device.type, enabled=False):
+            return super().forward(self.dropout(x.float()))
+
+
+class DAFormerFusionHead(DAFormerDecoder):
+    """Multi-stream head over the {image, events, fusion, ISR} pyramids with
+    ``share='full'``: one decoder and one classifier for every stream.
+
+    In eval mode (BN on running statistics) several streams are decoded as
+    one batch stacked along dim 0 and split back, which equals the
+    per-stream loop."""
+
+    def __init__(self, cfg: DAFormerHeadConfig, share: str = "full",
+                 split_cls: bool = False, events_classes: int | None = None):
+        if share != "full" or split_cls or events_classes is not None:
+            raise NotImplementedError(
+                "only share='full' without split classifiers is ported")
+        super().__init__(cfg, stream="image")
+        self.conv_seg = Classifier(cfg.channels, cfg.num_classes,
+                                   cfg.dropout_ratio)
+
+    def forward(self, feats: dict, streams=None):
+        """feats: {'f_image', 'f_events', 'f_fusion', 'f_img_self_res'}
+        (NCHW lists or None) -> {'image_output', 'events_output',
+        'fusion_output', 'img_self_res_output'} stride-4 logits [B, C, h, w]
+        (None where the input is missing or not in ``streams``)."""
+        plan = [("image", "image_output", feats.get("f_image")),
+                ("events", "events_output", feats.get("f_events")),
+                ("fusion", "fusion_output", feats.get("f_fusion")),
+                ("isr", "img_self_res_output", feats.get("f_img_self_res"))]
+        active = [(k, f) for n, k, f in plan
+                  if f is not None and (streams is None or n in streams)]
+        out = {k: None for _, k, _ in plan}
+        if len(active) > 1 and not self.training:
+            stacked = [torch.cat([f[i] for _, f in active], dim=0)
+                       for i in range(len(active[0][1]))]
+            logits = self.conv_seg(self.decode(stacked))
+            for key, part in zip([k for k, _ in active],
+                                 logits.chunk(len(active), dim=0)):
+                out[key] = part
+            return out
+        for key, f in active:
+            out[key] = self.conv_seg(self.decode(f))
+        return out

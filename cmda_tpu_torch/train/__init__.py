@@ -1,0 +1,1 @@
+"""Evaluation (and, in a later slice, training) loops of the port."""

@@ -1,0 +1,88 @@
+"""Package rules of cmda_tpu_torch: it imports neither JAX nor the JAX
+package (checked by a clean subprocess and by an AST scan, for the package
+and for chip_smoke.py), its entry points default to the GPU, and its
+configs mirror the JAX package's field for field."""
+import ast
+import dataclasses
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import cmda_tpu_torch
+from cmda_tpu import config as JC
+from cmda_tpu_torch import apis as tapis
+from cmda_tpu_torch import config as TC
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "cmda_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cmda_tpu")
+
+
+def _forbidden(mod: str) -> bool:
+    top = mod.split(".")[0]
+    return top in FORBIDDEN
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        cmda_tpu_torch.__path__, "cmda_tpu_torch."))
+
+
+def test_import_loads_no_jax_and_no_cmda_tpu():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {_modules()!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(ROOT), timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "cmda_tpu_torch.apis" in loaded
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_source_imports_no_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tapis.init_segmentor("micro")
+
+
+def _fields(obj):
+    """Field names and default values of a config tree, recursively."""
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _fields(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, (tuple, list)):
+        return [_fields(x) for x in obj]
+    return obj
+
+
+@pytest.mark.parametrize("preset", ["cs2dsec_image_events_b5",
+                                    "cs2dz_image_rawisr_b5",
+                                    "tiny_test_config", "micro_test_config"])
+def test_config_presets_mirror_jax(preset):
+    assert _fields(getattr(TC, preset)()) == _fields(getattr(JC, preset)())

@@ -16,7 +16,19 @@ Phases, any failure exits non-zero:
      batch 8; launch counters must grow, outputs must be finite and agree
      with the plain argmax; then whole-frame inference times at batch 1 and
      8 in float32 and bfloat16;
-  5. one JSON line of per-kernel results, the nvidia-smi line, and last
+  5. the fused upsample+CE kernels (forward, dx, dweight) against the plain
+     resize + weighted CE and its autograd gradients: the flagship loss
+     shape [2,128,128,19] -> [2,512,512] in float32 and bfloat16, non-square
+     factors, all labels ignored, no weight; timed beside the bound;
+  6. training: one DACS step of the micro config on the card against the
+     same step on the CPU (plain versions), then the flagship cs2dsec MiT-b5
+     DACS step at 512x512 batch 2 (random weights from seed 0, random
+     CycleGAN): 3 counted steps (finite logs, parameters move, the EMA
+     teacher after step 0 is the pre-update student, each step launches CE
+     forward 8, CE dx 8, argmax 3, ISR 1), the median step time, a device
+     time breakdown of one step by CUDA events, the peak memory, and the
+     device-busy time of one step under ``torch.profiler``;
+  7. one JSON line of per-kernel results, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -41,8 +53,20 @@ ARGMAX_OPS_PER_PIXEL_CLASS = 13
 # operations per pixel of the ISR: two directions x (2 x (mul, add, log),
 # sub, abs-compare, 2 clamps, 2 x (sub, div, add)) + the average (3)
 ISR_OPS_PER_PIXEL = 2 * (2 * 3 + 1 + 1 + 2 + 2 * 3) + 3
+# operations per (output pixel, class) of the fused upsample+CE: the
+# argmax's blend and online max/sum-exp (13); the dx adds the softmax,
+# the one-hot and the coefficient (4) and the transposed row and column
+# blends (8)
+CE_FWD_OPS_PER_PIXEL_CLASS = 13
+CE_DX_OPS_PER_PIXEL_CLASS = 25
 ARGMAX_TOL = 1e-5       # prob, absolute; labels may differ only at ties
 ISR_TOL = 1e-5          # absolute, values in [-1, 1]
+# fused CE: the loss to 1e-5 relative; dx and dweight, which are O(1/N),
+# to 1e-4 of their largest magnitude in float32; in bfloat16 the outputs
+# round to 8 bits, so 2 units of the last place (2^-7) of the largest
+CE_LOSS_RTOL = 1e-5
+CE_REL_TOL = 1e-4
+CE_BF16_REL_TOL = 2.0 ** -7
 
 
 def fail(msg):
@@ -213,6 +237,153 @@ def phase_isr(gen):
             "library_ms": None}
 
 
+def _ce_case(gen, shape, size, dtype, dev, *, weighted=True, ignored=0.05):
+    """Logits, int32 labels with a share ``ignored`` set to 255, and pixel
+    weights in [0.2, 1.5) (or None)."""
+    import torch
+    b, c = shape[0], shape[-1]
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    lbl = torch.randint(0, c, (b,) + tuple(size), generator=gen, device=dev,
+                        dtype=torch.int32)
+    drop = torch.rand(lbl.shape, generator=gen, device=dev) < ignored
+    lbl = torch.where(drop, 255, lbl).to(torch.int32)
+    wgt = (0.2 + 1.3 * torch.rand(lbl.shape, generator=gen, device=dev)
+           if weighted else None)
+    return x, lbl, wgt
+
+
+def _grads(fn, x, lbl, wgt):
+    """(loss, d loss / d x, d loss / d weight or None) of ``fn``."""
+    import torch
+    xg = x.detach().clone().requires_grad_(True)
+    wg = wgt.detach().clone().requires_grad_(True) if wgt is not None else None
+    loss = fn(xg, lbl, wg)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.detach(), xg.grad, (wg.grad if wg is not None else None)
+
+
+def phase_ce(gen):
+    """Kernels 1-3 (fused upsample+CE forward, dx, dweight) against the
+    plain resize + weighted CE and its autograd gradients, on the card."""
+    import torch
+    import torch.nn.functional as F
+    from cmda_tpu_torch.ops.fused_ce import (
+        fused_resize_ce, fused_resize_ce_dweight, fused_resize_ce_dx,
+        fused_resize_ce_forward, resize_ce)
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    flagship = ((2, 128, 128, 19), (512, 512))
+    cases = {  # name: (shape, size, dtype, weighted, ignored share)
+        "flagship_f32": (*flagship, f32, True, 0.05),
+        "flagship_bf16": (*flagship, bf16, True, 0.05),
+        "nonsquare_3x4": ((2, 32, 40, 19), (96, 160), f32, True, 0.05),
+        "all_ignored": ((2, 32, 40, 19), (128, 160), f32, True, 1.0),
+        "no_weight": (*flagship, f32, False, 0.05),
+    }
+    worst = {"loss": 0.0, "dx": 0.0, "dweight": 0.0}
+    for name, (shape, size, dtype, weighted, ignored) in cases.items():
+        x, lbl, wgt = _ce_case(gen, shape, size, dtype, dev,
+                               weighted=weighted, ignored=ignored)
+        loss, dx, dw = _grads(fused_resize_ce, x, lbl, wgt)
+        ref, ref_dx, ref_dw = _grads(resize_ce, x, lbl, wgt)
+        if name == "all_ignored":
+            zeros = (float(loss) == 0.0 and float(dx.abs().max()) == 0.0
+                     and float(dw.abs().max()) == 0.0)
+            print(f"ce {name}: loss {float(loss)}, max|dx| "
+                  f"{float(dx.abs().max())}, max|dweight| "
+                  f"{float(dw.abs().max())}", flush=True)
+            if not zeros:
+                fail("ce all_ignored: loss, dx and dweight must be exactly 0")
+            continue
+        tol = CE_REL_TOL if dtype == f32 else CE_BF16_REL_TOL
+        diffs = {"loss": (loss - ref).abs(),
+                 "dx": (dx.float() - ref_dx.float()).abs().max()}
+        scale = {"loss": ref.abs(), "dx": ref_dx.float().abs().max()}
+        if dw is not None:
+            diffs["dweight"] = (dw - ref_dw).abs().max()
+            scale["dweight"] = ref_dw.abs().max()
+        errs = {k: float(diffs[k] / scale[k]) for k in diffs}
+        print(f"ce {name} {shape}->{size} {dtype}: loss {float(loss):.7f} vs "
+              f"{float(ref):.7f}; errors relative to max|ref| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f" (tolerance loss {CE_LOSS_RTOL:g}, grads {tol:g})",
+              flush=True)
+        if not errs["loss"] <= CE_LOSS_RTOL:
+            fail(f"ce {name}: loss relative error {errs['loss']}")
+        for k in ("dx", "dweight"):
+            if k in errs and not errs[k] <= tol:
+                fail(f"ce {name}: {k} error {errs[k]} of max|ref|")
+        if dtype == f32:
+            for k, v in diffs.items():
+                worst[k] = max(worst[k], float(v))
+
+    # timing at the flagship shape, float32 with pixel weights
+    (b, h, w, c), (hh, ww) = flagship
+    x, lbl, wgt = _ce_case(gen, flagship[0], flagship[1], f32, dev)
+    g = torch.ones((), device=dev)
+    _, lse = fused_resize_ce_forward(x, lbl, wgt)
+    n_fine, n_coarse = b * hh * ww, b * h * w
+    ms = {"fwd": cuda_ms(lambda: fused_resize_ce_forward(x, lbl, wgt)),
+          "dx": cuda_ms(lambda: fused_resize_ce_dx(g, x, lbl, wgt, lse)),
+          "dweight": cuda_ms(lambda: fused_resize_ce_dweight(g, x, lbl, lse))}
+
+    def plain_fwd_bwd(wrt_weight):
+        xg = x.detach().requires_grad_(not wrt_weight)
+        wg = wgt.detach().requires_grad_(wrt_weight)
+        resize_ce(xg, lbl, wg).backward()
+
+    with torch.no_grad():
+        plain_fwd = cuda_ms(lambda: resize_ce(x, lbl, wgt))
+    plain = {"fwd": plain_fwd,
+             "dx": cuda_ms(lambda: plain_fwd_bwd(False)),
+             "dweight": cuda_ms(lambda: plain_fwd_bwd(True))}
+    lbl64 = lbl.long()
+
+    def library_pair():
+        z = F.interpolate(x.permute(0, 3, 1, 2), size=(hh, ww),
+                          mode="bilinear", align_corners=False)
+        return (F.cross_entropy(z, lbl64, ignore_index=255, reduction="none")
+                * wgt).mean()
+    with torch.no_grad():
+        pair_ms = cuda_ms(library_pair)
+    elt = x.element_size()
+    logits_b, pix_b = n_coarse * c * elt, n_fine * 4
+    bounds = {
+        # logits, labels, weights in; the scalar out
+        "fwd": bound(logits_b + 2 * pix_b + 4,
+                     n_fine * c * CE_FWD_OPS_PER_PIXEL_CLASS),
+        # logits, labels, weights in; dx out
+        "dx": bound(2 * logits_b + 2 * pix_b,
+                    n_fine * c * CE_DX_OPS_PER_PIXEL_CLASS),
+        # logits, labels in; dweight out
+        "dweight": bound(logits_b + 2 * pix_b,
+                         n_fine * c * CE_FWD_OPS_PER_PIXEL_CLASS),
+    }
+    names = {"fwd": ("fused_resize_ce", "cmda_tpu/ops/pallas_ce.py:114"),
+             "dx": ("fused_resize_ce_dx", "cmda_tpu/ops/pallas_ce.py:141"),
+             "dweight": ("fused_resize_ce_dweight",
+                         "cmda_tpu/ops/pallas_ce.py:196")}
+    out = []
+    for k, (kname, replaces) in names.items():
+        bound_ms, bound_by = bounds[k]
+        print(f"ce timing {kname} [2,128,128,19]->[2,512,512] f32: kernel "
+              f"{ms[k]:.4f} ms, plain {plain[k]:.4f} ms "
+              f"({'forward' if k == 'fwd' else 'forward+backward'}), bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        out.append({"name": kname, "route": "cuda",
+                    "source": "cmda_tpu_torch/csrc/fused_resize_ce.cu",
+                    "replaces": replaces, "max_abs_err": worst[
+                        "loss" if k == "fwd" else k],
+                    "ms": ms[k], "kernel_ms": ms[k], "plain_ms": plain[k],
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None, "library_pair_ms": pair_ms})
+    print(f"ce timing: kernels fwd+dx {ms['fwd'] + ms['dx']:.4f} ms vs plain "
+          f"fwd+bwd {plain['dx']:.4f} ms; F.interpolate + F.cross_entropy "
+          f"(two calls, forward only) {pair_ms:.4f} ms", flush=True)
+    return out
+
+
 def phase_main_path(results):
     import torch
     from PIL import Image
@@ -327,6 +498,222 @@ def phase_main_path(results):
     print("timings " + json.dumps(timings), flush=True)
 
 
+TRAIN_COUNTED = ("fused_resize_ce", "fused_resize_ce_dx",
+                 "fused_resize_ce_dweight", "fused_resize_argmax",
+                 "batched_isr")
+# launches per DACS step: 4 streams x (source, mixed) CEs and their dx; the
+# teacher's pseudo-labels and the two acc_seg; the mixed ISR. The pixel
+# weights carry no gradient, so the dweight kernel never runs in a step.
+TRAIN_LAUNCHES_PER_STEP = {"fused_resize_ce": 8, "fused_resize_ce_dx": 8,
+                           "fused_resize_ce_dweight": 0,
+                           "fused_resize_argmax": 3, "batched_isr": 1}
+# the same step on the card and on the CPU: losses to 1e-4 relative (float32
+# sums in other orders); acc_seg in percent may move by a few near-tie
+# pixels of the 2 x 32 x 32 labels
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_ACC_ATOL = 100.0 * 8 / (2 * 32 * 32)
+
+
+def _kernel_counters():
+    from cmda_tpu_torch.ops import fused_ce, fused_resize, isr_kernel
+    fns = {"fused_resize_ce": fused_ce.fused_resize_ce,
+           "fused_resize_ce_dx": fused_ce.fused_resize_ce_dx,
+           "fused_resize_ce_dweight": fused_ce.fused_resize_ce_dweight,
+           "fused_resize_argmax": fused_resize.fused_resize_argmax,
+           "batched_isr": isr_kernel.batched_isr}
+    return {k: fns[k] for k in TRAIN_COUNTED}
+
+
+def _counted_step(trainer, state, batch, draws=None):
+    """One train_step with the launch counters set to 0 just before it and
+    read just after: (logs, launches)."""
+    import torch
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    state, logs = trainer.train_step(state, batch, draws)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if launches != TRAIN_LAUNCHES_PER_STEP:
+        fail(f"train step launches {launches}, expected "
+             f"{TRAIN_LAUNCHES_PER_STEP}")
+    logs = {k: float(v) for k, v in logs.items()}
+    bad = [k for k, v in logs.items() if not math.isfinite(v)]
+    if bad:
+        fail(f"train step logs not finite: {bad}")
+    return logs, launches
+
+
+def phase_train_micro():
+    """One DACS step of the micro config (CycleGAN on) on the card and on
+    the CPU from the same state, batch and draws: the kernels' step
+    against the plain versions' step."""
+    import torch
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.data.synthetic import (SyntheticSource,
+                                               SyntheticTarget, uda_batch)
+    from cmda_tpu_torch.uda.dacs import DACSTrainer
+    cfg = C.micro_test_config()
+    cfg = C.replace(cfg, uda=C.replace(cfg.uda, use_cyclegan_day_events=True))
+    cpu, gpu = DACSTrainer(cfg, device="cpu"), DACSTrainer(cfg, device="cuda")
+    s_cpu, s_gpu = cpu.init_state(), gpu.init_state()
+    for a, b in ((s_cpu.model, s_gpu.model), (s_cpu.ema_model, s_gpu.ema_model),
+                 (s_cpu.cyclegan, s_gpu.cyclegan)):
+        b.load_state_dict(a.state_dict())
+    batch = uda_batch(SyntheticSource(crop_size=(32, 32)),
+                      SyntheticTarget(crop_size=(32, 32)), [0, 1])
+    draws = cpu.new_draws(s_cpu, 2)
+    _, ref = cpu.train_step(s_cpu, batch, draws)
+    logs, _ = _counted_step(gpu, s_gpu, batch, draws.to("cuda"))
+    worst = 0.0
+    for k, r in sorted(ref.items()):
+        r = float(r)
+        if k.endswith("acc_seg"):
+            ok = abs(logs[k] - r) <= TRAIN_ACC_ATOL
+        else:
+            err = abs(logs[k] - r) / max(abs(r), 1e-12)
+            worst = max(worst, err if r else abs(logs[k]))
+            ok = abs(logs[k] - r) <= TRAIN_LOSS_RTOL * abs(r)
+        if not ok:
+            fail(f"train micro: {k} cuda {logs[k]} vs cpu {r}")
+    lr = cfg.optim.lr * cfg.optim.head_lr_mult
+    moved = max(float((p.detach().cpu() - q.detach()).abs().max())
+                for p, q in zip(s_gpu.model.parameters(),
+                                s_cpu.model.parameters()))
+    print(f"train micro: one step on cuda vs cpu, losses max relative error "
+          f"{worst:.3g} (tolerance {TRAIN_LOSS_RTOL:g}), acc_seg "
+          f"{logs['src/acc_seg']:.3f}/{logs['mix/acc_seg']:.3f} vs "
+          f"{float(ref['src/acc_seg']):.3f}/{float(ref['mix/acc_seg']):.3f}, "
+          f"params max|d| {moved:.3g} (bound 2 x lr {2 * lr:g})", flush=True)
+    if not moved <= 2 * lr:
+        fail(f"train micro: params differ by {moved} after one step")
+
+
+def _device_busy(trainer, state, batch):
+    """One step under ``torch.profiler`` (device activity only): (host ms
+    of the profiled step, device-busy ms = the union of its kernels' and
+    copies' intervals, number of device events); busy is None when the
+    trace holds no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return host_ms, None, 0
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    busy += hi - lo
+    return host_ms, busy / 1e3, len(spans)
+
+
+def phase_train():
+    """The DACS training step of the flagship cs2dsec MiT-b5 preset at
+    512x512, batch 2, float32: 3 counted steps, then the step time, its
+    device-time breakdown and the peak memory. Returns the launches of the
+    3 counted steps by kernel."""
+    import torch
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.data.synthetic import (SyntheticSource,
+                                               SyntheticTarget, uda_batch)
+    from cmda_tpu_torch.uda.dacs import DACSTrainer
+    cfg = C.cs2dsec_image_events_b5()
+    b, (w, h) = cfg.data.batch_size, cfg.data.crop_size
+    t0 = time.perf_counter()
+    trainer = DACSTrainer(cfg, device="cuda")
+    state = trainer.init_state(seed=0)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    torch.cuda.synchronize()
+    print(f"train: cs2dsec MiT-b5 DACS, {n_params} params, {h}x{w} batch {b} "
+          f"float32, remat {cfg.model.remat}, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    src = SyntheticSource(crop_size=(w, h))
+    tgt = SyntheticTarget(crop_size=(w, h))
+    batches = [uda_batch(src, tgt, [b * i + j for j in range(b)])
+               for i in range(10)]
+    student0 = [p.detach().clone() for p in state.model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    totals = dict.fromkeys(TRAIN_COUNTED, 0)
+    for i in range(3):
+        t0 = time.perf_counter()
+        logs, launches = _counted_step(trainer, state, batches[i])
+        for k, v in launches.items():
+            totals[k] += v
+        print(f"train step {i}: {time.perf_counter() - t0:.2f} s, launches "
+              f"{launches}, loss {logs['loss']:.5f}, src/loss_seg "
+              f"{logs['src/loss_seg']:.5f}, mix/loss_seg "
+              f"{logs['mix/loss_seg']:.5f}, pseudo_weight "
+              f"{logs['pseudo_weight']:.5f}, use_events "
+              f"{logs['use_events']:.0f}", flush=True)
+        if i == 0:
+            same = all(torch.equal(e, p) for e, p in
+                       zip(state.ema_model.parameters(), student0))
+            if not same:
+                fail("after step 0 the EMA teacher is not the pre-update "
+                     "student")
+    moved = sum(int(not torch.equal(p, q)) for p, q in
+                zip(state.model.parameters(), student0))
+    print(f"train: after 3 steps {moved} of {len(student0)} parameter "
+          f"tensors moved; EMA teacher after step 0 == the pre-update "
+          f"student", flush=True)
+    if moved == 0:
+        fail("train: no parameter moved")
+    del student0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    step_ms = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        trainer.train_step(state, batches[3 + i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    trainer.marks = []
+    trainer.train_step(state, batches[8])
+    torch.cuda.synchronize()
+    marks, trainer.marks = trainer.marks, None
+    names = {"cyclegan": "cyclegan", "ema": "ema_update",
+             "teacher": "teacher_and_pseudo_labels",
+             "mix": "classmix_jitter_blur_mixed_isr",
+             "src": "source_fwd_bwd", "mix_fwd_bwd": "mixed_fwd_bwd",
+             "optimizer": "optimizer"}
+    breakdown = {names[n]: a.elapsed_time(e) for (_, a), (n, e) in
+                 zip(marks, marks[1:])}
+    total = sum(breakdown.values())
+    prof_ms, busy_ms, n_events = _device_busy(trainer, state, batches[9])
+    timings = {"train_step_ms_median": statistics.median(step_ms),
+               "train_step_ms": step_ms, "train_peak_gib": peak,
+               "train_breakdown_ms": breakdown,
+               "train_profiled_step_ms": prof_ms,
+               "train_device_busy_ms": busy_ms,
+               "train_device_events": n_events}
+    print("train: profiled step " + (
+        f"{prof_ms:.2f} ms host, device busy {busy_ms:.2f} ms "
+        f"({100 * busy_ms / prof_ms:.1f}%) over {n_events} device events"
+        if busy_ms is not None else
+        f"{prof_ms:.2f} ms host, device busy not measured (the trace holds "
+        "no device event)"), flush=True)
+    print(f"train: step time median {statistics.median(step_ms):.2f} ms over "
+          f"5 steps ({', '.join(f'{t:.2f}' for t in step_ms)}), "
+          f"{b / statistics.median(step_ms) * 1e3:.3f} samples/s; peak device "
+          f"memory {peak:.2f} GiB", flush=True)
+    print("train: step device ms " + ", ".join(
+        f"{k} {v:.2f} ({100 * v / total:.1f}%)" for k, v in breakdown.items())
+        + f"; sum {total:.2f}", flush=True)
+    print("train timings " + json.dumps(timings), flush=True)
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -356,6 +743,15 @@ def main():
     gen.manual_seed(0)
     results = [phase_argmax(gen), phase_isr(gen)]
     phase_main_path(results)
+    results += phase_ce(gen)
+    phase_train_micro()
+    launches = phase_train()
+    for r in results:
+        # the serving kernels keep their serving-path count under
+        # "launches"; the training path's count goes beside it
+        key = ("launches" if r["name"].startswith("fused_resize_ce")
+               else "launches_train")
+        r[key] = launches[r["name"]]
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi, flush=True)

@@ -8,43 +8,78 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+
+def maybe_checkpoint(fn, *args, remat: bool):
+    """``fn(*args)``, rematerialised in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant) when ``remat`` is set and
+    gradients are being recorded."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth; the identity in eval mode."""
+    """Per-sample stochastic depth with pre-drawn uniforms: ``u`` [B] keeps
+    sample b iff ``u[b] < 1 - rate`` (a Bernoulli(1 - rate) draw, as
+    cmda_tpu.models.mit.MiTBlockScan._drop_path), scaling kept samples by
+    1 / (1 - rate). Without ``u`` it is the identity (eval)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
-        if self.rate == 0.0 or not self.training:
+    def forward(self, x, u: torch.Tensor | None = None):
+        if u is None or self.rate == 0.0:
             return x
-        keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, device=x.device) < keep
+        # 1 - rate rounded to float32, as the JAX package computes it
+        keep = float(np.float32(1.0) - np.float32(self.rate))
+        mask = (u < keep).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class StreamBatchNorm(nn.BatchNorm2d):
-    """BatchNorm over NCHW in eval mode: running statistics, eps 1e-5, math
-    in float32 (flax ``BatchNorm`` semantics of the JAX package). The
-    train-mode grouped batch statistics of cmda_tpu.models.common come with
-    the trainer; until then train mode raises instead of computing torch's
-    different running-variance update."""
+    """BatchNorm over NCHW with the flax ``BatchNorm`` semantics of the JAX
+    package (eps 1e-5, math in float32). The mode is the call's, not the
+    module's ``training`` flag:
+
+    * ``bn_train=False``: normalise with the running statistics;
+    * ``bn_train=True``: normalise with the batch statistics, the variance
+      in one pass, ``E[x^2] - E[x]^2`` clamped at 0, and (``update=True``)
+      move the running statistics by ``r <- 0.9 r + 0.1 s`` with the
+      **biased** batch variance (``nn.BatchNorm2d``'s own update keeps the
+      unbiased one, so it is not used);
+    * ``bn_train=True, update=False``: batch statistics, running statistics
+      untouched (the EMA teacher's forward)."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "StreamBatchNorm train mode is not ported yet; call .eval()")
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                         self.weight, self.bias, False, 0.0, self.eps)
+    def forward(self, x, bn_train: bool = False, update: bool = True):
+        if not bn_train:
+            y = F.batch_norm(x.float(), self.running_mean, self.running_var,
+                             self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(x.dtype)
+        xf = x.float()
+        dims = (0, 2, 3)
+        mean = xf.mean(dim=dims)
+        var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(min=0.0)
+        shape = (1, -1, 1, 1)
+        y = ((xf - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
+                                                      + self.eps)
+             * self.weight.reshape(shape) + self.bias.reshape(shape))
+        if update:
+            m = self.MOMENTUM
+            with torch.no_grad():
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
         return y.to(x.dtype)
 
 
@@ -61,8 +96,8 @@ class ConvBNReLU(nn.Module):
                               dilation=dilation, groups=groups, bias=False)
         self.bn = StreamBatchNorm(features)
 
-    def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+    def forward(self, x, bn_train: bool = False, update: bool = True):
+        return F.relu(self.bn(self.conv(x), bn_train, update))
 
 
 @torch.no_grad()

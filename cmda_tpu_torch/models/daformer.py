@@ -9,6 +9,12 @@ Parameter names are the reference mmseg DAFormerHeadFusion keys:
 ``embed_layers_image.{i}.proj``, ``fuse_layer_image.aspp_modules.{i}``
 (``.conv``/``.bn``, or ``.depthwise_conv``/``.pointwise_conv``),
 ``fuse_layer_image.bottleneck`` and ``conv_seg``.
+
+Training separates two flags, as the JAX package does: ``train`` turns on
+the classifier's Dropout2d (its channel masks are passed in), ``bn_train``
+normalises with batch statistics (``bn_update`` says whether the running
+statistics move; the EMA teacher runs ``train=False, bn_train=True,
+bn_update=False``).
 """
 from __future__ import annotations
 
@@ -45,8 +51,9 @@ class SepConvBNReLU(nn.Module):
                                          groups=in_channels)
         self.pointwise_conv = ConvBNReLU(in_channels, features, 1)
 
-    def forward(self, x):
-        return self.pointwise_conv(self.depthwise_conv(x))
+    def forward(self, x, bn_train: bool = False, update: bool = True):
+        return self.pointwise_conv(self.depthwise_conv(x, bn_train, update),
+                                   bn_train, update)
 
 
 class SepASPP(nn.Module):
@@ -61,9 +68,10 @@ class SepASPP(nn.Module):
             for d in dilations])
         self.bottleneck = ConvBNReLU(len(dilations) * channels, channels, 3)
 
-    def forward(self, x):
-        return self.bottleneck(torch.cat([m(x) for m in self.aspp_modules],
-                                         dim=1))
+    def forward(self, x, bn_train: bool = False, update: bool = True):
+        return self.bottleneck(
+            torch.cat([m(x, bn_train, update) for m in self.aspp_modules],
+                      dim=1), bn_train, update)
 
 
 class MLPEmbed(nn.Module):
@@ -96,7 +104,7 @@ class DAFormerDecoder(nn.Module):
             cfg.embed_dim * len(cfg.in_channels), cfg.channels,
             cfg.aspp_dilations))
 
-    def decode(self, feats):
+    def decode(self, feats, bn_train: bool = False, update: bool = True):
         target = feats[0].shape[2:]
         embeds = []
         for layer, f in zip(getattr(self, self._embed_name), feats):
@@ -106,24 +114,33 @@ class DAFormerDecoder(nn.Module):
                                   mode="bilinear", align_corners=False
                                   ).to(e.dtype)
             embeds.append(e)
-        return getattr(self, self._fuse_name)(torch.cat(embeds, dim=1))
+        return getattr(self, self._fuse_name)(torch.cat(embeds, dim=1),
+                                              bn_train, update)
 
-    def forward(self, feats):
-        return self.decode(feats)
+    def forward(self, feats, bn_train: bool = False, update: bool = True):
+        return self.decode(feats, bn_train, update)
 
 
 class Classifier(nn.Conv2d):
     """Dropout2d + 1x1 conv classifier (``cls_seg``), in float32 whatever
-    the compute dtype."""
+    the compute dtype. Dropout2d takes its channel keep-mask ``keep``
+    [B, C] (bool, drawn with probability 1 - dropout_ratio by the caller's
+    generator) and scales the kept channels by 1 / (1 - dropout_ratio);
+    without a mask it is the identity (eval)."""
 
     def __init__(self, channels: int, num_classes: int,
                  dropout_ratio: float = 0.1):
         super().__init__(channels, num_classes, 1)
-        self.dropout = nn.Dropout2d(dropout_ratio)
+        self.dropout_ratio = dropout_ratio
 
-    def forward(self, x):
+    def forward(self, x, keep: torch.Tensor | None = None):
         with torch.autocast(x.device.type, enabled=False):
-            return super().forward(self.dropout(x.float()))
+            x = x.float()
+            if keep is not None and self.dropout_ratio > 0:
+                x = torch.where(keep[:, :, None, None],
+                                x / (1.0 - self.dropout_ratio),
+                                torch.zeros_like(x))
+            return super().forward(x)
 
 
 class DAFormerFusionHead(DAFormerDecoder):
@@ -143,26 +160,40 @@ class DAFormerFusionHead(DAFormerDecoder):
         self.conv_seg = Classifier(cfg.channels, cfg.num_classes,
                                    cfg.dropout_ratio)
 
-    def forward(self, feats: dict, streams=None):
+    def forward(self, feats: dict, streams=None, *, train: bool = False,
+                bn_train: bool | None = None, bn_update: bool = True,
+                dropout_keep: torch.Tensor | None = None):
         """feats: {'f_image', 'f_events', 'f_fusion', 'f_img_self_res'}
         (NCHW lists or None) -> {'image_output', 'events_output',
         'fusion_output', 'img_self_res_output'} stride-4 logits [B, C, h, w]
-        (None where the input is missing or not in ``streams``)."""
+        (None where the input is missing or not in ``streams``).
+
+        ``bn_train`` defaults to ``train``. With running-statistics BN,
+        several streams are decoded as one batch stacked along dim 0 and
+        split back, which equals the per-stream loop. With batch statistics
+        the streams go one after another through the shared decoder, in the
+        order image, events, fusion, isr, each moving the running statistics
+        in turn. ``dropout_keep`` [4, B, C] holds the Dropout2d keep-masks of
+        the four streams in that order (needed when ``train``)."""
+        bn = train if bn_train is None else bn_train
         plan = [("image", "image_output", feats.get("f_image")),
                 ("events", "events_output", feats.get("f_events")),
                 ("fusion", "fusion_output", feats.get("f_fusion")),
                 ("isr", "img_self_res_output", feats.get("f_img_self_res"))]
-        active = [(k, f) for n, k, f in plan
+        active = [(pos, k, f) for pos, (n, k, f) in enumerate(plan)
                   if f is not None and (streams is None or n in streams)]
         out = {k: None for _, k, _ in plan}
-        if len(active) > 1 and not self.training:
-            stacked = [torch.cat([f[i] for _, f in active], dim=0)
-                       for i in range(len(active[0][1]))]
+        if train and self.conv_seg.dropout_ratio > 0 and dropout_keep is None:
+            raise ValueError("train=True needs the Dropout2d keep-masks")
+        if len(active) > 1 and not bn and not train:
+            stacked = [torch.cat([f[i] for _, _, f in active], dim=0)
+                       for i in range(len(active[0][2]))]
             logits = self.conv_seg(self.decode(stacked))
-            for key, part in zip([k for k, _ in active],
+            for key, part in zip([k for _, k, _ in active],
                                  logits.chunk(len(active), dim=0)):
                 out[key] = part
             return out
-        for key, f in active:
-            out[key] = self.conv_seg(self.decode(f))
+        for pos, key, f in active:
+            keep = dropout_keep[pos] if train else None
+            out[key] = self.conv_seg(self.decode(f, bn, bn_update), keep)
         return out

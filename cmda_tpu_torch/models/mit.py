@@ -8,6 +8,12 @@ over stacked parameters. Modules take and return NCHW feature maps; inside
 a stage, tokens are [B, H*W, C], row-major over (h, w) like the JAX
 reshape. Numerics follow the JAX package: LayerNorm eps 1e-6, exact GELU,
 the qk softmax in float32, attention as plain matmul + softmax.
+
+Training: stochastic depth takes pre-drawn uniforms, one [depth, 2, B]
+tensor per stage (``u[i, 0]`` for block i's attention branch, ``u[i, 1]``
+for its MLP branch), as the JAX package draws them outside its stage scan.
+``remat=True`` checkpoints each block; the injected uniforms make the
+recompute deterministic.
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import DropPath
+from .common import DropPath, maybe_checkpoint
 
 
 @dataclass(frozen=True)
@@ -137,9 +143,12 @@ class MiTBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = MixFFN(dim, dim * mlp_ratio, dim, drop_rate)
 
-    def forward(self, x, hw):
-        x = x + self.drop_path(self.attn(self.norm1(x), hw))
-        return x + self.drop_path(self.mlp(self.norm2(x), hw))
+    def forward(self, x, hw, u: torch.Tensor | None = None):
+        """``u`` [2, B]: the drop-path uniforms of the two branches (None in
+        eval)."""
+        u0, u1 = (None, None) if u is None else (u[0], u[1])
+        x = x + self.drop_path(self.attn(self.norm1(x), hw), u0)
+        return x + self.drop_path(self.mlp(self.norm2(x), hw), u1)
 
 
 class OverlapPatchEmbed(nn.Module):
@@ -163,9 +172,11 @@ class MixVisionTransformer(nn.Module):
     4/8/16/32. Stochastic depth ramps linearly to ``drop_path_rate`` over all
     blocks."""
 
-    def __init__(self, cfg: MiTConfig = MiTConfig(), in_chans: int = 3):
+    def __init__(self, cfg: MiTConfig = MiTConfig(), in_chans: int = 3,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         total = sum(cfg.depths)
         dpr = [cfg.drop_path_rate * i / max(total - 1, 1)
                for i in range(total)]
@@ -183,12 +194,15 @@ class MixVisionTransformer(nn.Module):
             setattr(self, f"norm{s + 1}", nn.LayerNorm(dim, eps=1e-6))
             cur += cfg.depths[s]
 
-    def forward(self, x):
+    def forward(self, x, droppath=None):
+        """``droppath``: None (eval) or 4 tensors [depth_s, 2, B] of
+        drop-path uniforms, one per stage."""
         outs = []
         for s in range(1, 5):
             x, hw = getattr(self, f"patch_embed{s}")(x)
-            for blk in getattr(self, f"block{s}"):
-                x = blk(x, hw)
+            for i, blk in enumerate(getattr(self, f"block{s}")):
+                u = None if droppath is None else droppath[s - 1][i]
+                x = maybe_checkpoint(blk, x, hw, u, remat=self.remat)
             x = tokens_to_map(getattr(self, f"norm{s}")(x), hw)
             outs.append(x)
         return outs

@@ -6,17 +6,25 @@ the ISR stream), a fusion module over the two pyramids (+ the optional
 ``fusion_isr_module``) and the DAFormer fusion head. ``forward_logits`` and
 ``forward`` take NHWC inputs and return NHWC logits, like the JAX package;
 the modules inside are NCHW.
+
+Training (``forward_train``, or ``forward_logits(train=True)``) takes its
+random draws as a ``ForwardDraws``: the drop-path uniforms of every encoder
+stage and fusion block and the classifier's Dropout2d keep-masks. The
+events and ISR streams share one double-batch pass through
+``backbone_events``, so its uniforms are [depth, 2, 2B], one draw for both
+halves, as in the JAX package.
 """
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass, field
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from .daformer import DAFormerFusionHead, DAFormerHeadConfig
-from .fusion import build_fusion_module
+from .fusion import build_fusion_module, num_drop_path_blocks
 from .mit import MIT_VARIANTS, MixVisionTransformer
 from ..ops.resize import resize_bilinear
 
@@ -49,6 +57,34 @@ def _nchw(x):
     return None if x is None else x.permute(0, 3, 1, 2)
 
 
+@dataclass
+class ForwardDraws:
+    """Random draws of one training forward. Drop-path uniforms are U[0, 1)
+    per stage [depth_s, 2, batch] (``image``; ``events`` for the
+    events-backbone pass, the events+ISR double batch included; ``isr`` for
+    a separate ISR pass) and per fusion module [n_blocks, 2, B];
+    ``dropout_keep`` [4, B, C] are the classifier's channel keep-masks of
+    the image, events, fusion and isr streams."""
+    image: Optional[Sequence[torch.Tensor]] = None
+    events: Optional[Sequence[torch.Tensor]] = None
+    isr: Optional[Sequence[torch.Tensor]] = None
+    fusion: Optional[torch.Tensor] = None
+    fusion_isr: Optional[torch.Tensor] = None
+    dropout_keep: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "ForwardDraws":
+        """The same draws on ``device``."""
+        return ForwardDraws(**{k: _tensors_to(v, device)
+                               for k, v in self.__dict__.items()})
+
+
+def _tensors_to(value, device):
+    """A tensor, or a list / tuple of tensors, on ``device`` (None stays)."""
+    if isinstance(value, (list, tuple)):
+        return type(value)(_tensors_to(v, device) for v in value)
+    return None if value is None else value.to(device)
+
+
 class FusionEncoderDecoder(nn.Module):
     """Dual-backbone image+events segmentor with feature-level fusion.
 
@@ -64,12 +100,12 @@ class FusionEncoderDecoder(nn.Module):
         mit_cfg = MIT_VARIANTS[cfg.backbone]
         mit_cfg = type(mit_cfg)(**{**mit_cfg.__dict__,
                                    "drop_path_rate": cfg.drop_path_rate})
-        self.backbone_image = MixVisionTransformer(mit_cfg)
-        self.backbone_events = MixVisionTransformer(mit_cfg)
-        self.fusion_module = build_fusion_module(cfg.fusion,
-                                                 mit_cfg.embed_dims)
-        self.fusion_isr_module = build_fusion_module(cfg.fusion_isr,
-                                                     mit_cfg.embed_dims)
+        self.backbone_image = MixVisionTransformer(mit_cfg, remat=cfg.remat)
+        self.backbone_events = MixVisionTransformer(mit_cfg, remat=cfg.remat)
+        self.fusion_module = build_fusion_module(
+            cfg.fusion, mit_cfg.embed_dims, remat=cfg.remat)
+        self.fusion_isr_module = build_fusion_module(
+            cfg.fusion_isr, mit_cfg.embed_dims, remat=cfg.remat)
         self.decode_head = DAFormerFusionHead(
             cfg.head, share=cfg.share_decoder, split_cls=cfg.split_cls,
             events_classes=cfg.events_classes)
@@ -79,34 +115,63 @@ class FusionEncoderDecoder(nn.Module):
             return contextlib.nullcontext()
         return torch.autocast(device.type, dtype=self.dtype)
 
+    def new_draws(self, batch: int, *, double_events: bool,
+                  generator: torch.Generator,
+                  device: torch.device) -> ForwardDraws:
+        """Fresh ``ForwardDraws`` for a training forward at ``batch``, drawn
+        from ``generator`` on ``device``; ``double_events`` when the events
+        and ISR streams share one events-backbone pass."""
+        def uniform(*shape):
+            return torch.rand(shape, generator=generator, device=device)
+
+        depths = self.backbone_image.cfg.depths
+        eb = 2 * batch if double_events else batch
+        rate = self.decode_head.conv_seg.dropout_ratio
+        n_cls = self.decode_head.conv_seg.in_channels
+        return ForwardDraws(
+            image=[uniform(d, 2, batch) for d in depths],
+            events=[uniform(d, 2, eb) for d in depths],
+            isr=None if double_events else [uniform(d, 2, batch)
+                                            for d in depths],
+            fusion=uniform(num_drop_path_blocks(self.fusion_module), 2,
+                           batch),
+            fusion_isr=uniform(num_drop_path_blocks(self.fusion_isr_module),
+                               2, batch),
+            dropout_keep=uniform(4, batch, n_cls) < 1.0 - rate)
+
     def extract_feat(self, image, events, img_self_res=None,
-                     mode: str = "default"):
+                     mode: str = "default",
+                     draws: ForwardDraws | None = None):
         """NCHW inputs -> {'f_image', 'f_events', 'f_fusion',
-        'f_img_self_res'} NCHW pyramids (None where absent)."""
-        f_image = self.backbone_image(image) if image is not None else None
+        'f_img_self_res'} NCHW pyramids (None where absent). ``draws``
+        (training) carries the drop-path uniforms; None is eval."""
+        d = draws if draws is not None else ForwardDraws()
+        f_image = (self.backbone_image(image, d.image)
+                   if image is not None else None)
         if (events is not None and img_self_res is not None
                 and events.shape == img_self_res.shape):
             # events and ISR share the events backbone: one double-batch pass
-            both = self.backbone_events(torch.cat([events, img_self_res], 0))
+            both = self.backbone_events(torch.cat([events, img_self_res], 0),
+                                        d.events)
             b = events.shape[0]
             f_events = [f[:b] for f in both]
             f_isr = [f[b:] for f in both]
         else:
-            f_events = (self.backbone_events(events)
+            f_events = (self.backbone_events(events, d.events)
                         if events is not None else None)
-            f_isr = (self.backbone_events(img_self_res)
+            f_isr = (self.backbone_events(img_self_res, d.isr)
                      if img_self_res is not None else None)
         if mode == "no_fusion":
             f_fusion = None
         elif mode == "fusion_isr":
             other = f_events if f_isr is None else f_isr
-            f_fusion = self.fusion_isr_module(f_image, other)
+            f_fusion = self.fusion_isr_module(f_image, other, d.fusion_isr)
         elif mode == "fusion_all":
-            f_a = self.fusion_isr_module(f_image, f_isr)
-            f_b = self.fusion_module(f_image, f_events)
+            f_a = self.fusion_isr_module(f_image, f_isr, d.fusion_isr)
+            f_b = self.fusion_module(f_image, f_events, d.fusion)
             f_fusion = [(a + b) / 2 for a, b in zip(f_a, f_b)]
         elif mode == "default":
-            f_fusion = (self.fusion_module(f_image, f_events)
+            f_fusion = (self.fusion_module(f_image, f_events, d.fusion)
                         if (self.fusion_module is not None
                             and f_events is not None) else None)
         else:
@@ -116,21 +181,46 @@ class FusionEncoderDecoder(nn.Module):
 
     def forward_logits(self, image, events, img_self_res=None,
                        mode: str = "default", resize_to_input: bool = True,
-                       streams=None):
+                       streams=None, *, train: bool = False,
+                       bn_train: bool | None = None, bn_update: bool = True,
+                       draws: ForwardDraws | None = None,
+                       return_feats: bool = False):
         """NHWC inputs -> dict of NHWC float32 logit streams, at the input
         resolution (``resize_to_input``) or at stride 4. ``streams`` limits
-        which outputs are decoded."""
+        which outputs are decoded.
+
+        ``train`` turns on drop-path and Dropout2d with the draws in
+        ``draws`` (required then); ``bn_train`` (default ``train``) uses
+        batch statistics in BN, and ``bn_update`` whether they move the
+        running statistics (the EMA teacher: ``train=False,
+        bn_train=True, bn_update=False``)."""
+        if train and draws is None:
+            raise ValueError("train=True needs the forward's draws")
         ref = image if image is not None else events
         with self._autocast(ref.device):
             feats = self.extract_feat(_nchw(image), _nchw(events),
-                                      _nchw(img_self_res), mode)
-            out = self.decode_head(feats, streams=streams)
+                                      _nchw(img_self_res), mode,
+                                      draws if train else None)
+            out = self.decode_head(
+                feats, streams=streams, train=train, bn_train=bn_train,
+                bn_update=bn_update,
+                dropout_keep=draws.dropout_keep if train else None)
         out = {k: (v.permute(0, 2, 3, 1) if v is not None else None)
                for k, v in out.items()}
         if resize_to_input:
             out = {k: (resize_bilinear(v, ref.shape[1:3])
                        if v is not None else None) for k, v in out.items()}
-        return out
+        return (out, feats) if return_feats else out
+
+    def forward_train(self, image, events, img_self_res=None,
+                      mode: str = "default",
+                      draws: ForwardDraws | None = None):
+        """Training forward: (stride-4 NHWC logits dict, NCHW features),
+        with drop-path, Dropout2d and batch-statistics BN that moves the
+        running statistics."""
+        return self.forward_logits(image, events, img_self_res, mode,
+                                   resize_to_input=False, train=True,
+                                   draws=draws, return_feats=True)
 
     def forward(self, image, events, img_self_res=None, mode: str = "default",
                 output: str = "fusion"):

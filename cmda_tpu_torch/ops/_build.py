@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cmda_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fused_resize_argmax", "batched_isr")
+SOURCES = ("fused_resize_argmax", "batched_isr", "fused_resize_ce")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,43 @@
+"""Segmentation losses (mirrors cmda_tpu.ops.losses).
+
+* ``weighted_cross_entropy``: per-pixel CE, zero at ``ignore_index``, times
+  the per-pixel weight, then the mean over **all** B*H*W pixels, ignored
+  ones included (the reference's ``F.cross_entropy(reduction='none')``
+  followed by ``.mean()``). ``F.cross_entropy(reduction='mean',
+  ignore_index=...)`` divides by the valid count instead, so it is not used.
+* ``pixel_accuracy``: 100 * #(argmax == label) / numel(label), ignored
+  pixels in the denominator (they can never match).
+
+Logits are NHWC [B, H, W, C]; labels [B, H, W] integers.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                           weight: torch.Tensor | None = None,
+                           ignore_index: int = 255) -> torch.Tensor:
+    """Mean per-pixel CE with pixel weights, B*H*W denominator."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    nll = torch.where(valid, nll, 0.0)
+    if weight is not None:
+        nll = nll * weight.float()
+    return nll.mean()
+
+
+def pixel_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                   ignore_index: int = 255) -> torch.Tensor:
+    """Top-1 accuracy in percent over all pixels."""
+    pred = logits.argmax(dim=-1)
+    return accuracy_of_labels(pred, labels, ignore_index)
+
+
+def accuracy_of_labels(pred: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = 255) -> torch.Tensor:
+    """``pixel_accuracy`` of already-computed predicted labels."""
+    correct = ((pred == labels) & (labels != ignore_index)).sum()
+    return 100.0 * correct.float() / labels.numel()

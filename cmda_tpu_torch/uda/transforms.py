@@ -1,0 +1,123 @@
+"""UDA loss pieces (mirrors the flagship's part of cmda_tpu.uda.transforms).
+
+* ``multi_stream_loss``: the weighted sum over the head's streams,
+  fusion*w_f + image*w_i, plus isr*w_isr + events*(w_e/2) when the ISR
+  stream is there, else events*w_e; each stream's CE is taken on its
+  stride-4 logits upsampled to the label size, through the fused
+  upsample+CE kernels for integer factors (``fused_resize_ce``) and the
+  plain resize+CE otherwise. ``acc_seg`` comes from the fusion stream (the
+  image stream without fusion), through the fused upsample+argmax kernel.
+* ``pseudo_label_and_weight`` / ``pseudo_label_and_weight_coarse``: the
+  teacher's argmax labels and the scalar confidence-ratio weight (share of
+  pixels whose max softmax >= threshold), with optional top/bottom rows
+  zeroed; the coarse form takes stride-4 logits through the fused
+  upsample+argmax kernel, so the full-size teacher logits never exist.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops.fused_ce import fused_resize_ce, resize_ce
+from ..ops.fused_resize import (fused_resize_argmax, is_integer_factor,
+                                resize_argmax)
+from ..ops.losses import accuracy_of_labels
+
+
+def _stream_accuracy(x: torch.Tensor, label: torch.Tensor,
+                     ignore_index: int = 255) -> torch.Tensor:
+    """pixel_accuracy of ``x`` [B, h, w, C] upsampled to the label size."""
+    size = tuple(label.shape[1:3])
+    x = x.detach().contiguous()
+    if is_integer_factor(x.shape, size):
+        pred = fused_resize_argmax(x, size, with_prob=False)[0]
+    else:
+        pred = resize_argmax(x, size, with_prob=False)[0]
+    return accuracy_of_labels(pred, label, ignore_index)
+
+
+def stream_ce(x: torch.Tensor, label: torch.Tensor,
+              weight: torch.Tensor | None,
+              ignore_index: int = 255) -> torch.Tensor:
+    """CE of stride-4 logits ``x`` upsampled to the label size: the fused
+    kernels for integer factors, the plain resize+CE for any other
+    geometry (a dispatch on shape, visible in the kernels' launch
+    counters)."""
+    if is_integer_factor(x.shape, label.shape[1:3]):
+        return fused_resize_ce(x.contiguous(), label, weight,
+                               ignore_index=ignore_index)
+    return resize_ce(x, label, weight, ignore_index)
+
+
+def multi_stream_loss(logits: dict, label: torch.Tensor,
+                      seg_weight: torch.Tensor | None, *, w_image: float,
+                      w_events: float, w_fusion: float, w_isr: float,
+                      ignore_index: int = 255):
+    """logits: dict of stride-4 NHWC streams (None where absent); label
+    [B, H, W] int32; seg_weight [B, H, W] float32 or None. Returns
+    (loss, logs), the logs as 0-dim tensors."""
+    def ce(x):
+        return stream_ce(x, label, seg_weight, ignore_index)
+
+    l_image = ce(logits["image_output"])
+    loss = l_image * w_image
+    logs = {"loss_image": l_image}
+    if logits.get("fusion_output") is not None:
+        l_fusion = ce(logits["fusion_output"])
+        loss = loss + l_fusion * w_fusion
+        logs["loss_fusion"] = l_fusion
+        logs["acc_seg"] = _stream_accuracy(logits["fusion_output"], label,
+                                           ignore_index)
+    else:
+        logs["acc_seg"] = _stream_accuracy(logits["image_output"], label,
+                                           ignore_index)
+    if logits.get("events_output") is not None:
+        l_events = ce(logits["events_output"])
+        logs["loss_events"] = l_events
+        if logits.get("img_self_res_output") is not None:
+            l_isr = ce(logits["img_self_res_output"])
+            logs["loss_isr"] = l_isr
+            loss = loss + l_isr * w_isr + l_events * (w_events / 2.0)
+        else:
+            loss = loss + l_events * w_events
+    logs["loss_seg"] = loss
+    return loss, {k: v.detach() for k, v in logs.items()}
+
+
+def _weight_from_prob(prob, threshold, ignore_top, ignore_bottom):
+    ratio = (prob >= threshold).float().mean()
+    weight = torch.ones_like(prob) * ratio
+    if ignore_top > 0:
+        weight[:, :ignore_top, :] = 0.0
+    if ignore_bottom > 0:
+        weight[:, -ignore_bottom:, :] = 0.0
+    return weight
+
+
+def pseudo_label_and_weight(fusion_logits: torch.Tensor, *,
+                            threshold: float = 0.968, ignore_top: int = 0,
+                            ignore_bottom: int = 0):
+    """Full-size teacher logits [B, H, W, C] -> (pseudo_label int32,
+    weight float32 [B, H, W])."""
+    z = fusion_logits.float()
+    softmax = torch.softmax(z, dim=-1)
+    prob, _ = softmax.max(dim=-1)
+    label = softmax.argmax(dim=-1).to(torch.int32)
+    return label, _weight_from_prob(prob, threshold, ignore_top,
+                                    ignore_bottom)
+
+
+def pseudo_label_and_weight_coarse(logits_s4: torch.Tensor, out_size, *,
+                                   threshold: float = 0.968,
+                                   ignore_top: int = 0,
+                                   ignore_bottom: int = 0):
+    """``pseudo_label_and_weight`` of stride-4 logits upsampled to
+    ``out_size``: the fused upsample+argmax kernel for integer factors, the
+    plain resize + softmax otherwise (the same math)."""
+    out_size = tuple(out_size)
+    if is_integer_factor(logits_s4.shape, out_size):
+        label, prob = fused_resize_argmax(logits_s4.detach().contiguous(),
+                                          out_size)
+    else:
+        label, prob = resize_argmax(logits_s4.detach(), out_size)
+    return label, _weight_from_prob(prob, threshold, ignore_top,
+                                    ignore_bottom)

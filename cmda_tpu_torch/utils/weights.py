@@ -61,7 +61,18 @@ def _to_torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
     raise ValueError(f"unexpected kernel rank {arr.ndim}")
 
 
-def _walk(tree, path):
+def _to_jax_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
+    """The inverse of ``_to_torch_layout``."""
+    if leaf != "kernel":
+        return arr
+    if arr.ndim == 2:
+        return arr.T
+    if arr.ndim == 4:
+        return np.transpose(arr, (2, 3, 1, 0))
+    raise ValueError(f"unexpected kernel rank {arr.ndim}")
+
+
+def _walk(tree, path=()):
     for k, v in tree.items():
         if isinstance(v, dict) or hasattr(v, "items"):
             yield from _walk(v, path + (str(k),))
@@ -69,31 +80,81 @@ def _walk(tree, path):
             yield path + (str(k),), np.asarray(v)
 
 
+def _torch_keys(path: tuple, depth: int) -> list[str]:
+    """The reference state_dict keys of the flax leaf at ``path``: one key,
+    or, under a scanned stage (``blocks{s}``), one per block of the
+    leading axis of length ``depth``."""
+    *mods, leaf = path
+    stage = None
+    names = []
+    for seg in mods:
+        m = _STACKED.match(seg)
+        if m:
+            stage = len(names)
+            names.append(f"block{m[1]}")
+            continue
+        new = _rename(seg)
+        if new is not None:
+            names.append(new)
+    if leaf not in _LEAF:
+        raise KeyError(f"unmapped leaf {'/'.join(path)}")
+    if stage is None:
+        return [".".join(names + [_LEAF[leaf]])]
+    return [".".join(names[:stage + 1] + [str(i)] + names[stage + 1:]
+                     + [_LEAF[leaf]]) for i in range(depth)]
+
+
+def _is_stacked(path: tuple) -> bool:
+    return any(_STACKED.match(seg) for seg in path[:-1])
+
+
+def tree_to_state_dict(tree) -> dict[str, np.ndarray]:
+    """One flax collection tree -> {reference key: numpy array}, scanned
+    stages unstacked and kernels in torch layout."""
+    out = {}
+    for path, arr in _walk(tree):
+        keys = _torch_keys(path, arr.shape[0] if _is_stacked(path) else 1)
+        if not _is_stacked(path):
+            out[keys[0]] = _to_torch_layout(path[-1], arr)
+            continue
+        for i, key in enumerate(keys):   # unstack a scanned stage
+            out[key] = _to_torch_layout(path[-1], arr[i])
+    return out
+
+
+def state_dict_to_tree(sd: dict, layout) -> dict:
+    """The inverse of ``tree_to_state_dict``: a nested dict shaped like the
+    flax tree ``layout`` (numpy leaves; only the paths and stage depths are
+    read) with each leaf taken from ``sd`` (tensors or arrays) in JAX
+    layout. Raises on a key of the layout that ``sd`` lacks."""
+    out = {}
+    for path, arr in _walk(layout):
+        stacked = _is_stacked(path)
+        keys = _torch_keys(path, arr.shape[0] if stacked else 1)
+        missing = [k for k in keys if k not in sd]
+        if missing:
+            raise KeyError(f"no {missing[:4]} for {'/'.join(path)}")
+        vals = [_to_jax_layout(path[-1], _numpy(sd[k])) for k in keys]
+        node = out
+        for seg in path[:-1]:
+            node = node.setdefault(seg, {})
+        node[path[-1]] = np.stack(vals) if stacked else vals[0]
+    return out
+
+
+def _numpy(t) -> np.ndarray:
+    """A copy, never a view: a CPU tensor's ``.numpy()`` shares its memory,
+    and the optimizer and BN update parameters and buffers in place."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy().copy()
+    return np.array(t)
+
+
 def jax_to_state_dict(variables) -> dict[str, np.ndarray]:
     """JAX variable tree -> {reference state_dict key: numpy array}."""
     out = {}
     for coll in ("params", "batch_stats"):
-        for path, arr in _walk(variables.get(coll, {}), ()):
-            *mods, leaf = path
-            stage = None
-            names = []
-            for seg in mods:
-                m = _STACKED.match(seg)
-                if m:
-                    stage = len(names)
-                    names.append(f"block{m[1]}")
-                    continue
-                new = _rename(seg)
-                if new is not None:
-                    names.append(new)
-            if leaf not in _LEAF:
-                raise KeyError(f"unmapped leaf {'/'.join(path)}")
-            if stage is None:
-                out[".".join(names + [_LEAF[leaf]])] = _to_torch_layout(leaf, arr)
-                continue
-            for i in range(arr.shape[0]):   # unstack a scanned stage
-                key = names[:stage + 1] + [str(i)] + names[stage + 1:]
-                out[".".join(key + [_LEAF[leaf]])] = _to_torch_layout(leaf, arr[i])
+        out.update(tree_to_state_dict(variables.get(coll, {})))
     return out
 
 
@@ -166,3 +227,163 @@ def load_reference_state_dict(model: nn.Module, sd: dict) -> nn.Module:
                        f"missing {missing[:8]}, unexpected "
                        f"{result.unexpected_keys[:8]}")
     return model
+
+
+# ---------------------------------------------------------------------------
+# the DACS training state
+# ---------------------------------------------------------------------------
+# A training state in the JAX tree's key layout, as numpy ("the JAX
+# layout" below):
+#   {"step": int,
+#    "params", "batch_stats", "ema_params": flax trees (scanned stages
+#        stacked, flax kernel layouts),
+#    "opt": {"head" | "backbone": {"count": int, "mu": tree, "nu": tree}}
+#        (the optax multi_transform AdamW moments of each group, the
+#        group's own leaves only, and its bias-correction count),
+#    "cyclegan_params": the ResnetGenerator's flax tree, or None}
+
+def _cyclegan_keys(n_blocks: int) -> dict[tuple, str]:
+    """flax path (module, leaf) of the JAX ResnetGenerator -> reference
+    key prefix of its ``nn.Sequential``."""
+    idx = {("conv_in",): 1, ("down0",): 4, ("down1",): 7}
+    for i in range(n_blocks):
+        idx[(f"resblock{i}", "conv1")] = f"{10 + i}.conv_block.1"
+        idx[(f"resblock{i}", "conv2")] = f"{10 + i}.conv_block.5"
+    idx[("up0",)] = 10 + n_blocks
+    idx[("up1",)] = 10 + n_blocks + 3
+    idx[("conv_out",)] = 10 + n_blocks + 7
+    return {k: f"model.{v}" for k, v in idx.items()}
+
+
+def cyclegan_to_state_dict(params) -> dict[str, np.ndarray]:
+    """JAX ResnetGenerator params -> its reference state_dict."""
+    n_blocks = sum(1 for k in params if str(k).startswith("resblock"))
+    keys = _cyclegan_keys(n_blocks)
+    out = {}
+    for path, arr in _walk(params):
+        out[f"{keys[path[:-1]]}.{_LEAF[path[-1]]}"] = _to_torch_layout(
+            path[-1], arr)
+    if len(out) != 2 * len(keys):
+        raise KeyError(f"CycleGAN params: {len(out)} leaves for "
+                       f"{len(keys)} convs")
+    return out
+
+
+def cyclegan_to_tree(sd: dict) -> dict:
+    """The inverse of ``cyclegan_to_state_dict``."""
+    n_blocks = sum(1 for k in sd if k.endswith("conv_block.1.weight"))
+    out = {}
+    for path, prefix in _cyclegan_keys(n_blocks).items():
+        node = out
+        for seg in path:
+            node = node.setdefault(seg, {})
+        node["kernel"] = _to_jax_layout("kernel", _numpy(sd[f"{prefix}.weight"]))
+        node["bias"] = _numpy(sd[f"{prefix}.bias"])
+    return out
+
+
+def _params_by_key(model: nn.Module) -> dict[str, torch.Tensor]:
+    return dict(model.named_parameters())
+
+
+def _groups_by_part(optimizer) -> dict[str, list]:
+    parts = {}
+    for group in optimizer.param_groups:
+        parts.setdefault(group["part"], []).extend(group["params"])
+    return parts
+
+
+@torch.no_grad()
+def load_jax_train_state(state, jax_state: dict):
+    """Fill a ``DACSTrainState`` from a training state in the JAX layout:
+    params, running BN statistics, the EMA params, the AdamW moments and
+    counts of both groups, the step and the CycleGAN. Raises on any key
+    left over or missing, or a parameter whose optimizer group differs."""
+    load_jax_variables(state.model, {"params": jax_state["params"],
+                                     "batch_stats": jax_state["batch_stats"]})
+    ema_sd = tree_to_state_dict(jax_state["ema_params"])
+    ema = _params_by_key(state.ema_model)
+    if set(ema_sd) != set(ema):
+        raise KeyError(f"EMA params do not match: missing "
+                       f"{sorted(set(ema) - set(ema_sd))[:8]}, left over "
+                       f"{sorted(set(ema_sd) - set(ema))[:8]}")
+    for k, t in ema.items():
+        t.copy_(torch.from_numpy(np.ascontiguousarray(ema_sd[k])))
+    params = _params_by_key(state.model)
+    parts = {part: {id(p) for p in ps}
+             for part, ps in _groups_by_part(state.optimizer).items()}
+    seen = set()
+    for part, opt in jax_state["opt"].items():
+        mu, nu = tree_to_state_dict(opt["mu"]), tree_to_state_dict(opt["nu"])
+        if set(mu) != set(nu):
+            raise KeyError(f"AdamW {part}: mu and nu keys differ")
+        for k in mu:
+            p = params[k]
+            if id(p) not in parts[part]:
+                raise KeyError(f"{k} is not in the {part!r} group")
+            state.optimizer.state[p] = {
+                "step": torch.tensor(float(opt["count"]), dtype=torch.float32),
+                "exp_avg": torch.from_numpy(np.ascontiguousarray(mu[k])).to(
+                    p.device, p.dtype),
+                "exp_avg_sq": torch.from_numpy(np.ascontiguousarray(nu[k])).to(
+                    p.device, p.dtype)}
+            seen.add(k)
+    if seen != set(params):
+        raise KeyError(f"AdamW moments missing for "
+                       f"{sorted(set(params) - seen)[:8]}")
+    state.step = int(jax_state["step"])
+    if state.cyclegan is not None:
+        sd = cyclegan_to_state_dict(jax_state["cyclegan_params"])
+        state.cyclegan.load_state_dict({k: torch.from_numpy(
+            np.ascontiguousarray(v)) for k, v in sd.items()})
+    return state
+
+
+def train_state_to_numpy(state, layout: dict) -> dict:
+    """A ``DACSTrainState`` in the JAX layout. ``layout`` holds the flax
+    'params' and 'batch_stats' trees (numpy, e.g. the JAX state's) that fix
+    the key layout; only paths and stage depths are read."""
+    model_sd = {k: v for k, v in state.model.state_dict().items()
+                if not k.endswith("num_batches_tracked")}
+    opt = {}
+    params = _params_by_key(state.model)
+    for part, ps in _groups_by_part(state.optimizer).items():
+        ids = {id(p) for p in ps}
+        mine = {k: p for k, p in params.items() if id(p) in ids}
+        st = [state.optimizer.state.get(p, {}) for p in mine.values()]
+        counts = {float(s["step"]) for s in st if "step" in s} or {0.0}
+        if len(counts) != 1:
+            raise ValueError(f"AdamW {part}: parameters at different steps "
+                             f"{sorted(counts)}")
+        sub = _subtree(layout["params"], mine)
+        zeros = {k: torch.zeros_like(p) for k, p in mine.items()}
+        opt[part] = {
+            "count": int(counts.pop()),
+            "mu": state_dict_to_tree({k: state.optimizer.state.get(
+                p, {}).get("exp_avg", zeros[k]) for k, p in mine.items()}, sub),
+            "nu": state_dict_to_tree({k: state.optimizer.state.get(
+                p, {}).get("exp_avg_sq", zeros[k]) for k, p in mine.items()},
+                sub)}
+    return {
+        "step": state.step,
+        "params": state_dict_to_tree(model_sd, layout["params"]),
+        "batch_stats": state_dict_to_tree(model_sd, layout["batch_stats"]),
+        "ema_params": state_dict_to_tree(dict(state.ema_model.named_parameters()),
+                                         layout["params"]),
+        "opt": opt,
+        "cyclegan_params": (cyclegan_to_tree(state.cyclegan.state_dict())
+                            if state.cyclegan is not None else None)}
+
+
+def _subtree(layout, keys) -> dict:
+    """The leaves of ``layout`` whose reference keys are all in ``keys``
+    (a scanned stage's leaf belongs to one group as a whole)."""
+    out = {}
+    for path, arr in _walk(layout):
+        ks = _torch_keys(path, arr.shape[0] if _is_stacked(path) else 1)
+        if all(k in keys for k in ks):
+            node = out
+            for seg in path[:-1]:
+                node = node.setdefault(seg, {})
+            node[path[-1]] = arr
+    return out

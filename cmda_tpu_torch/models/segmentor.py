@@ -60,16 +60,14 @@ def _nchw(x):
 @dataclass
 class ForwardDraws:
     """Random draws of one training forward. Drop-path uniforms are U[0, 1)
-    per stage [depth_s, 2, batch] (``image``; ``events`` for the
-    events-backbone pass, the events+ISR double batch included; ``isr`` for
-    a separate ISR pass) and per fusion module [n_blocks, 2, B];
-    ``dropout_keep`` [4, B, C] are the classifier's channel keep-masks of
-    the image, events, fusion and isr streams."""
+    per encoder stage, ``image`` [depth_s, 2, B] and ``events``
+    [depth_s, 2, 2B] (the events+ISR double batch), and ``fusion``
+    [n_blocks, 2, B] for the fusion module; ``dropout_keep`` [4, B, C] are
+    the classifier's channel keep-masks of the image, events, fusion and isr
+    streams."""
     image: Optional[Sequence[torch.Tensor]] = None
     events: Optional[Sequence[torch.Tensor]] = None
-    isr: Optional[Sequence[torch.Tensor]] = None
     fusion: Optional[torch.Tensor] = None
-    fusion_isr: Optional[torch.Tensor] = None
     dropout_keep: Optional[torch.Tensor] = None
 
     def to(self, device) -> "ForwardDraws":
@@ -115,28 +113,21 @@ class FusionEncoderDecoder(nn.Module):
             return contextlib.nullcontext()
         return torch.autocast(device.type, dtype=self.dtype)
 
-    def new_draws(self, batch: int, *, double_events: bool,
-                  generator: torch.Generator,
+    def new_draws(self, batch: int, *, generator: torch.Generator,
                   device: torch.device) -> ForwardDraws:
         """Fresh ``ForwardDraws`` for a training forward at ``batch``, drawn
-        from ``generator`` on ``device``; ``double_events`` when the events
-        and ISR streams share one events-backbone pass."""
+        from ``generator`` on ``device``."""
         def uniform(*shape):
             return torch.rand(shape, generator=generator, device=device)
 
         depths = self.backbone_image.cfg.depths
-        eb = 2 * batch if double_events else batch
         rate = self.decode_head.conv_seg.dropout_ratio
         n_cls = self.decode_head.conv_seg.in_channels
         return ForwardDraws(
             image=[uniform(d, 2, batch) for d in depths],
-            events=[uniform(d, 2, eb) for d in depths],
-            isr=None if double_events else [uniform(d, 2, batch)
-                                            for d in depths],
+            events=[uniform(d, 2, 2 * batch) for d in depths],
             fusion=uniform(num_drop_path_blocks(self.fusion_module), 2,
                            batch),
-            fusion_isr=uniform(num_drop_path_blocks(self.fusion_isr_module),
-                               2, batch),
             dropout_keep=uniform(4, batch, n_cls) < 1.0 - rate)
 
     def extract_feat(self, image, events, img_self_res=None,
@@ -144,12 +135,18 @@ class FusionEncoderDecoder(nn.Module):
                      draws: ForwardDraws | None = None):
         """NCHW inputs -> {'f_image', 'f_events', 'f_fusion',
         'f_img_self_res'} NCHW pyramids (None where absent). ``draws``
-        (training) carries the drop-path uniforms; None is eval."""
+        (training) carries the drop-path uniforms; None is eval. Training
+        is ported for mode 'default' with the events+ISR double batch."""
+        double = (events is not None and img_self_res is not None
+                  and events.shape == img_self_res.shape)
+        if draws is not None and not (double and mode == "default"):
+            raise NotImplementedError(
+                f"training forward in mode {mode!r} without the events+ISR "
+                "double batch is not ported")
         d = draws if draws is not None else ForwardDraws()
         f_image = (self.backbone_image(image, d.image)
                    if image is not None else None)
-        if (events is not None and img_self_res is not None
-                and events.shape == img_self_res.shape):
+        if double:
             # events and ISR share the events backbone: one double-batch pass
             both = self.backbone_events(torch.cat([events, img_self_res], 0),
                                         d.events)
@@ -157,18 +154,18 @@ class FusionEncoderDecoder(nn.Module):
             f_events = [f[:b] for f in both]
             f_isr = [f[b:] for f in both]
         else:
-            f_events = (self.backbone_events(events, d.events)
+            f_events = (self.backbone_events(events)
                         if events is not None else None)
-            f_isr = (self.backbone_events(img_self_res, d.isr)
+            f_isr = (self.backbone_events(img_self_res)
                      if img_self_res is not None else None)
         if mode == "no_fusion":
             f_fusion = None
         elif mode == "fusion_isr":
             other = f_events if f_isr is None else f_isr
-            f_fusion = self.fusion_isr_module(f_image, other, d.fusion_isr)
+            f_fusion = self.fusion_isr_module(f_image, other)
         elif mode == "fusion_all":
-            f_a = self.fusion_isr_module(f_image, f_isr, d.fusion_isr)
-            f_b = self.fusion_module(f_image, f_events, d.fusion)
+            f_a = self.fusion_isr_module(f_image, f_isr)
+            f_b = self.fusion_module(f_image, f_events)
             f_fusion = [(a + b) / 2 for a, b in zip(f_a, f_b)]
         elif mode == "default":
             f_fusion = (self.fusion_module(f_image, f_events, d.fusion)

@@ -17,7 +17,8 @@ One ``train_step``:
   6. the source forward and backward, then the mixed forward and backward,
      the gradients summed by accumulation (the source activations are freed
      before the mixed forward starts), the four-stream CE through the fused
-     upsample+CE kernels;
+     upsample+CE kernels; both forwards take the same drop-path and
+     Dropout2d draws, as the JAX step hands both the same rngs;
   7. AdamW (head lr x10, no decay on norms), parameters without a gradient
      given zeros as optax would.
 
@@ -72,8 +73,9 @@ class StepDraws:
     coin []; mix_scores [B, C+1] (ClassMix ranking); jitter_gate [];
     jitter: (brightness, contrast, saturation [B, 1, 1, 1] in
     U[1-s, 1+s), hue [B, 1, 1] in U[-s, s)); blur_gate []; sigma [] in
-    U[0.15, 1.15); isr_dirs [B] int32 in [0, 4); src / mix: the drop-path
-    uniforms and Dropout2d masks of the source and the mixed forward."""
+    U[0.15, 1.15); isr_dirs [B] int32 in [0, 4); fwd: the drop-path
+    uniforms and Dropout2d masks of the source and the mixed forward (one
+    set for both, as the JAX step passes both forwards the same rngs)."""
     coin: torch.Tensor
     mix_scores: torch.Tensor
     jitter_gate: torch.Tensor
@@ -81,8 +83,7 @@ class StepDraws:
     blur_gate: torch.Tensor
     sigma: torch.Tensor
     isr_dirs: torch.Tensor
-    src: ForwardDraws
-    mix: ForwardDraws
+    fwd: ForwardDraws
 
     def to(self, device) -> "StepDraws":
         """The same draws on ``device``."""
@@ -119,8 +120,9 @@ class DACSTrainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self._check_supported(cfg)
-        # set to a list to collect (name, CUDA event) marks at the step's
-        # section boundaries (a device-time breakdown)
+        # set to a list to collect (name, CUDA event, peak bytes since the
+        # last mark, live bytes) at the step's section boundaries: a
+        # device-time and memory breakdown
         self.marks = None
 
     @staticmethod
@@ -195,13 +197,11 @@ class DACSTrainer:
                                 dev)
         isr_dirs = torch.randint(0, 4, (batch,), generator=gen, device=dev,
                                  dtype=torch.int32)
-        fwd = [state.model.new_draws(batch, double_events=True,
-                                     generator=gen, device=dev)
-               for _ in range(2)]
         return StepDraws(
             coin=coin, mix_scores=mix_scores, jitter_gate=jitter_gate,
             jitter=jitter, blur_gate=blur_gate, sigma=sigma,
-            isr_dirs=isr_dirs, src=fwd[0], mix=fwd[1])
+            isr_dirs=isr_dirs, fwd=state.model.new_draws(
+                batch, generator=gen, device=dev))
 
     # ------------------------------------------------------------------
     # pieces
@@ -210,7 +210,9 @@ class DACSTrainer:
         if self.marks is not None:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
-            self.marks.append((name, ev))
+            self.marks.append((name, ev, torch.cuda.max_memory_allocated(),
+                               torch.cuda.memory_allocated()))
+            torch.cuda.reset_peak_memory_stats()
 
     @torch.no_grad()
     def _day_events(self, state, src):
@@ -334,20 +336,22 @@ class DACSTrainer:
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)
 
-        logits, _ = model.forward_train(P["day_image"], P["day_events"],
-                                        P["day_isr"], "default", draws.src)
+        logits = model.forward_train(P["day_image"], P["day_events"],
+                                     P["day_isr"], "default", draws.fwd)[0]
         loss_src, logs_src = multi_stream_loss(logits, P["day_label"], None,
                                                **weights)
+        self._mark("src_fwd")
         loss_src.backward()
         del logits
-        self._mark("src")
-        logits, _ = model.forward_train(P["mixed_img"], P["mixed_events"],
-                                        P["mixed_isr"], "default", draws.mix)
+        self._mark("src_bwd")
+        logits = model.forward_train(P["mixed_img"], P["mixed_events"],
+                                     P["mixed_isr"], "default", draws.fwd)[0]
         loss_mix, logs_mix = multi_stream_loss(logits, P["mixed_lbl"],
                                                P["mixed_weight"], **weights)
+        self._mark("mix_fwd")
         loss_mix.backward()
         del logits
-        self._mark("mix_fwd_bwd")
+        self._mark("mix_bwd")
 
         zero_missing_grads(model.parameters())
         set_lr(opt, state.schedules, state.step)

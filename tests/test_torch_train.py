@@ -38,6 +38,7 @@ from cmda_tpu.models import common as jcommon
 from cmda_tpu.models import cyclegan as jcyc
 from cmda_tpu.models import fusion as jfus
 from cmda_tpu.models import mit as jmit
+from cmda_tpu.models.segmentor import FusionEncoderDecoder as JFED
 from cmda_tpu.ops import augment as jaug
 from cmda_tpu.train import optim as joptim
 from cmda_tpu.uda.dacs import DACSTrainer as JTrainer, DACSTrainState
@@ -47,11 +48,15 @@ from cmda_tpu_torch.data.synthetic import uda_batch
 from cmda_tpu_torch.models.common import DropPath, StreamBatchNorm
 from cmda_tpu_torch.models.cyclegan import (ResnetGenerator,
                                             generator_from_params)
+from cmda_tpu_torch.models.segmentor import (FusionEncoderDecoder as TFED,
+                                             ForwardDraws)
 from cmda_tpu_torch.ops import augment as taug
 from cmda_tpu_torch.train import optim as toptim
 from cmda_tpu_torch.uda.dacs import DACSTrainer, StepDraws
 from cmda_tpu_torch.utils.weights import (cyclegan_to_state_dict,
                                           load_jax_train_state,
+                                          load_jax_variables,
+                                          state_dict_to_tree,
                                           train_state_to_numpy)
 from torch_port_util import random_variables
 
@@ -125,6 +130,94 @@ def test_drop_path_same_uniforms(rate):
     out = DropPath(rate)(_t(y), _t(u))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **MOD_TOL)
     assert torch.equal(DropPath(rate)(_t(y)), _t(y))   # eval: identity
+
+
+def _record_draws(mp):
+    """Patch ``jax.random.uniform`` and ``bernoulli`` on ``mp`` so that every
+    uniform the JAX package draws (the MiT stages' drop-path uniforms, the
+    fusion blocks' and Dropout2d's Bernoullis, as ``uniform < p``) is
+    appended, in call order, to the returned list."""
+    rec, uniform = [], jax.random.uniform
+
+    def record_uniform(key, shape=(), *a, **k):
+        rec.append(uniform(key, shape, *a, **k))
+        return rec[-1]
+
+    def record_bernoulli(key, p=0.5, shape=None):
+        rec.append(uniform(key, shape))
+        return rec[-1] < p
+    mp.setattr(jax.random, "uniform", record_uniform)
+    mp.setattr(jax.random, "bernoulli", record_bernoulli)
+    return rec
+
+
+def test_forward_train_same_draws_as_jax(monkeypatch):
+    """The micro segmentor's training forward at non-zero drop-path (MiT
+    ramp to 0.6, fusion blocks 0.5) and Dropout2d (0.5) rates, 64x64. The
+    JAX forward draws from fixed keys; every uniform it draws is recorded
+    and handed to the port as its ``ForwardDraws``, which holds the port's
+    mapping of them (per stage, per block, per half of the double batch,
+    per stream) against JAX's. The port runs remat on, as the flagship.
+    Tolerances: the logits 1e-4, as the eval forward in
+    tests/test_torch_models.py (train-mode BatchNorm in the ASPP moves a
+    few by ~1.5e-5; a draw applied to the wrong sample or channel moves
+    them by O(1)); the BN running statistics after the forward 1e-5."""
+    b, hw, dp_fusion = 2, 64, 0.5
+
+    def cut(C, remat):
+        cfg = C.micro_test_config().model
+        return C.replace(cfg, drop_path_rate=0.6, remat=remat,
+                         head=C.replace(cfg.head, dropout_ratio=0.5))
+    monkeypatch.setitem(jfus.FUSION_REGISTRY, "attention_avg",
+                        functools.partial(jfus.AttentionAvgFusion,
+                                          drop_path_rate=dp_fusion))
+    jcfg = cut(JC, remat=False)
+    jm = JFED(jcfg)
+    g = np.random.default_rng(21)
+    x = [g.normal(size=(b, hw, hw, 3)).astype(np.float32) for _ in range(3)]
+    v = random_variables(lambda: jm.init(
+        jax.random.PRNGKey(0), *x, mode="fusion_all",
+        method=jm.forward_logits), seed=17)
+    tm = load_jax_variables(TFED(cut(TC, remat=True)), v)
+    for mod in tm.fusion_module.modules():
+        if isinstance(mod, DropPath):
+            mod.rate = dp_fusion
+    rec = _record_draws(monkeypatch)
+
+    @jax.jit
+    def jfwd(v, *x):
+        rec.clear()
+        out = jm.apply(v, *x, mode="default", mutable=["batch_stats"],
+                       rngs={"droppath": jax.random.PRNGKey(3),
+                             "dropout": jax.random.PRNGKey(4)},
+                       method=jm.forward_train)
+        return out, list(rec)
+    ((ref, _), upd), drawn = jfwd(v, *x)
+    # in call order: 4 image stages [1, 2, B], 4 events+ISR stages
+    # [1, 2, 2B], the fusion blocks' two drop-paths each [B, 1, 1], the
+    # Dropout2d of the image, events, fusion and isr streams [B, 1, 1, C]
+    drawn = [np.asarray(u) for u in drawn]
+    n_blocks, c = 2 * len(jcfg.head.in_channels), jcfg.head.channels
+    assert [u.shape for u in drawn] == (
+        [(1, 2, b)] * 4 + [(1, 2, 2 * b)] * 4 + [(b, 1, 1)] * 2 * n_blocks
+        + [(b, 1, 1, c)] * 4)
+    draws = ForwardDraws(
+        image=[_t(u) for u in drawn[:4]], events=[_t(u) for u in drawn[4:8]],
+        fusion=_t(np.stack(drawn[8:-4]).reshape(n_blocks, 2, b)),
+        dropout_keep=_t(np.stack(drawn[-4:])[:, :, 0, 0] < np.float32(0.5)))
+    # the draws do drop: a sample in a MiT block, one in a fusion block,
+    # and a classifier channel
+    ramp = np.linspace(0.0, 0.6, 4).astype(np.float32)
+    assert any((u >= 1 - r).any() for u, r in zip(drawn[:8], [*ramp, *ramp]))
+    assert (draws.fusion >= 1 - dp_fusion).any()
+    assert not draws.dropout_keep.all()
+
+    out, _ = tm.forward_train(*(_t(a) for a in x), "default", draws)
+    for k, r in ref.items():
+        np.testing.assert_allclose(out[k].detach().numpy(), np.asarray(r),
+                                   err_msg=k, atol=1e-4, rtol=1e-4)
+    got = state_dict_to_tree(tm.state_dict(), upd["batch_stats"])
+    _assert_tree_close(got, upd["batch_stats"], "batch_stats", **MOD_TOL)
 
 
 def _jax_cyclegan(seed=0, ngf=8, n_blocks=2, size=32):
@@ -359,18 +452,15 @@ def _jax_state_numpy(js):
             "cyclegan_params": tree(js.cyclegan_params)}
 
 
-def _draws(trainer, state, base_rng, step, batch, cfg):
-    """The JAX step's draws (dacs.py:272-290, augment.py), as a StepDraws."""
+def _draws(base_rng, step, batch, cfg, fwd):
+    """The JAX step's draws (dacs.py:272-290, augment.py), as a StepDraws;
+    ``fwd`` the ForwardDraws of both forwards."""
     rng = jax.random.fold_in(base_rng, step)
     (k_coin, k_mix, k_jit_gate, k_jit, k_blur_gate, k_sigma, k_dir,
      _k_drop, _k_dpath, _k_noise) = jax.random.split(rng, 10)
     s = cfg.uda.color_jitter_strength
     kb, kc, ks, kh = jax.random.split(k_jit, 4)
     u = jax.random.uniform
-    gen = torch.Generator().manual_seed(step)   # rates are 0: any values do
-    fwd = [state.model.new_draws(batch, double_events=True, generator=gen,
-                                 device=torch.device("cpu"))
-           for _ in range(2)]
     return StepDraws(
         coin=_t(u(k_coin)), mix_scores=_t(u(k_mix, (batch, 20))),
         jitter_gate=_t(u(k_jit_gate)),
@@ -382,7 +472,7 @@ def _draws(trainer, state, base_rng, step, batch, cfg):
         sigma=_t(u(k_sigma, minval=0.15, maxval=1.15)),
         isr_dirs=_t(jax.random.randint(k_dir, (batch,), 0, 4)).to(
             torch.int32),
-        src=fwd[0], mix=fwd[1])
+        fwd=fwd)
 
 
 def _assert_tree_close(got, ref, what, **tol):
@@ -409,19 +499,26 @@ def step_pair():
     """The JAX and the port's trainer from one state, and both after 1 and
     after 3 steps on the same batches and draws. The JAX step is jitted: its
     one compile (about a minute) costs less than running it eagerly (about
-    six minutes for three steps)."""
+    six minutes for three steps). The rates are 0, so the MiT stages' are
+    the only uniforms the JAX forwards draw; they are recorded for
+    ``test_dacs_step_forwards_share_draws``."""
     jcfg, tcfg = _configs()
     mp = pytest.MonkeyPatch()
-    # the fusion modules' drop-path rate (0.05) is not a config field; the
-    # JAX package draws it inside flax, which torch cannot replay
+    # the fusion modules' drop-path rate (0.05) is not a config field
     for kind in ("attention_avg", "attention"):
         mp.setitem(jfus.FUSION_REGISTRY, kind, functools.partial(
             jfus.FUSION_REGISTRY[kind], drop_path_rate=0.0))
+    rec = _record_draws(mp)
+
+    def jstep_recorded(state, batch, rng):
+        rec.clear()
+        return jtr.train_step(state, batch, rng), list(rec)
+    n_fwd = 4 + 4           # MiT stage uniforms per training forward
     try:
         jtr = JTrainer(jcfg)
         cyclegan = _jax_cyclegan()
         jstate = _jax_init_state(jtr, jcfg, cyclegan)
-        jstep = jax.jit(jtr.train_step)
+        jstep = jax.jit(jstep_recorded)
         ttr = DACSTrainer(tcfg, device="cpu")
         tstate = ttr.init_state(cyclegan_state_dict=cyclegan_to_state_dict(
             cyclegan))
@@ -434,15 +531,20 @@ def step_pair():
         tgt = SyntheticTarget(crop_size=jcfg.data.crop_size)
         base = jax.random.PRNGKey(11)
         layout = {"params": jstate.params, "batch_stats": jstate.batch_stats}
-        results = {}
+        results, drawn = {}, []
         for step in range(3):
             batch = uda_batch(src, tgt, [2 * step, 2 * step + 1])
             if step == 0:
                 student0 = {k: v.detach().clone() for k, v in
                             tstate.model.named_parameters()}
-            jstate, jlogs = jstep(jstate, jax.tree.map(jnp.asarray, batch),
-                                  base)
-            draws = _draws(ttr, tstate, base, step, 2, jcfg)
+            (jstate, jlogs), rec_step = jstep(
+                jstate, jax.tree.map(jnp.asarray, batch), base)
+            # the source forward's draws, then the mixed forward's
+            fwd = [np.asarray(u) for u in rec_step[-2 * n_fwd:]]
+            drawn.append((fwd[:n_fwd], fwd[n_fwd:]))
+            gen = torch.Generator().manual_seed(step)  # rates 0: any do
+            draws = _draws(base, step, 2, jcfg, tstate.model.new_draws(
+                2, generator=gen, device=torch.device("cpu")))
             tstate, tlogs = ttr.train_step(tstate, batch, draws)
             if step in (0, 2):
                 results[step + 1] = (
@@ -455,7 +557,7 @@ def step_pair():
                             tstate.ema_model.named_parameters()}
     finally:
         mp.undo()
-    return results, student0, teacher0, jcfg
+    return results, student0, teacher0, jcfg, drawn
 
 
 @pytest.mark.parametrize("n_steps", [1, 3])
@@ -469,7 +571,7 @@ def test_dacs_step_logs_match_jax(step_pair, n_steps):
 
 @pytest.mark.parametrize("n_steps", [1, 3])
 def test_dacs_step_state_matches_jax(step_pair, n_steps):
-    results, _, _, cfg = step_pair
+    results, _, _, cfg, _ = step_pair
     _, _, ref, got = results[n_steps]
     assert got["step"] == ref["step"] == n_steps
     _assert_tree_close(got["batch_stats"], ref["batch_stats"], "batch_stats",
@@ -489,10 +591,22 @@ def test_dacs_step_state_matches_jax(step_pair, n_steps):
 
 
 def test_dacs_teacher_after_step0_is_pre_update_student(step_pair):
-    _, student0, teacher0, _ = step_pair
+    _, student0, teacher0, _, _ = step_pair
     assert student0.keys() == teacher0.keys()
     for k, v in student0.items():
         assert torch.equal(teacher0[k], v), k
+
+
+def test_dacs_step_forwards_share_draws(step_pair):
+    """In the JAX step the source and the mixed forward draw the same
+    drop-path values (both get the step's rngs), which is why the port's
+    ``StepDraws`` holds one ``ForwardDraws`` for both."""
+    drawn = step_pair[4]
+    assert len(drawn) == 3
+    for src, mix in drawn:
+        assert [u.shape for u in src] == [(1, 2, 2)] * 4 + [(1, 2, 4)] * 4
+        for a, b in zip(src, mix, strict=True):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_mixed_isr_on_identical_image():

@@ -2,13 +2,18 @@
 """Drive the PyTorch/CUDA port (cmda_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one GPU
+    python3 chip_smoke.py --ce-device-time ROOT
+        # only the CE forward and dx device times of the checkout at ROOT
 
 Phases, any failure exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc (sm_90a), print build times
      and ptxas register/spill reports;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     serving shapes, and time both with CUDA events beside the bound;
+     serving shapes, and time both beside the bound: per call with CUDA
+     events (the wrapper's host work included), and the kernels' own device
+     time, the sum of their durations in a ``torch.profiler`` trace, median
+     of 20 calls (``device_ms``);
   4. the main path at full width: the cs2dsec MiT-b5 FusionEncoderDecoder
      (random weights from a seed) through ``inference_segmentor`` on a
      440x640 PNG, image-only (on-the-fly ISR kernel + fused upsample+argmax
@@ -19,7 +24,10 @@ Phases, any failure exits non-zero:
   5. the fused upsample+CE kernels (forward, dx, dweight) against the plain
      resize + weighted CE and its autograd gradients: the flagship loss
      shape [2,128,128,19] -> [2,512,512] in float32 and bfloat16, non-square
-     factors, all labels ignored, no weight; timed beside the bound;
+     factors, all labels ignored, no weight, and the tiles' edge geometries
+     (h or w of 1, sizes not multiples of the tile, factors 1, 2x3 and 3x4,
+     B = 1, C = 7 and 150); each run twice must give the same bits; timed
+     beside the bound, the forward and dx with warm and cold L2;
   6. training: one DACS step of the micro config on the card through the
      kernels, against the same step on the card through their plain
      versions and on the CPU (losses and AdamW's first moments), then the
@@ -30,7 +38,8 @@ Phases, any failure exits non-zero:
      forward 8, CE dx 8, argmax 3, ISR 1), the median step time, a device
      time and memory breakdown of one step by CUDA events and allocator
      counters, the peak memory of the timed steps, and the device-busy
-     time of one step under ``torch.profiler``;
+     time of one step under ``torch.profiler`` with each port kernel's
+     launches and device time in it;
   7. one JSON line of per-kernel results, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
@@ -104,6 +113,67 @@ def cuda_ms(fn, warmup=3, reps=20):
     return statistics.median(times)
 
 
+# the kernels each wrapper launches, as the profiler names them; a call's
+# device time is the sum of these kernels' durations in a trace. The CE
+# forward of PR 2 also launched sum_partials_kernel; it is listed so that
+# --ce-device-time times an older checkout the same way.
+KERNEL_NAMES = {
+    "fused_resize_argmax": ("resize_argmax_kernel",),
+    "batched_isr": ("init_extrema", "isr_reduce", "isr_write"),
+    "fused_resize_ce": ("ce_fwd_kernel", "sum_partials_kernel"),
+    "fused_resize_ce_dx": ("ce_dx_kernel",),
+    "fused_resize_ce_dweight": ("ce_dweight_kernel",),
+}
+# bytes written between calls for a cold-L2 reading (the H100's L2 is 50 MB)
+L2_FLUSH_BYTES = 256 * 2**20
+
+
+def kernel_spans(prof, names):
+    """(start, end) in us of the traced device kernels whose name holds one
+    of ``names``, in start order."""
+    import torch
+    return sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and any(n in e.name for n in names))
+
+
+def device_ms(fn, names, calls=20, warmup=3, cold=False):
+    """Device time of one call of ``fn()`` in ms, the wrapper's host work
+    and launch gaps left out: over ``calls`` calls in a ``torch.profiler``
+    trace, the median duration of each of the call's own kernels
+    (``names``) times its launches per call, summed. Taken per kernel, so
+    an event the trace drops shifts no kernel onto another call. ``cold``
+    writes L2_FLUSH_BYTES between calls, so each call finds its inputs
+    outside L2."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    flush = (torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold
+             else None)
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            if flush is not None:
+                flush.fill_(1.0)
+            fn()
+            torch.cuda.synchronize()
+    total, seen = 0.0, 0
+    for name in names:
+        spans = kernel_spans(prof, (name,))
+        if not spans:   # not a kernel of this checkout
+            continue
+        per = round(len(spans) / calls)
+        if per == 0 or abs(len(spans) - per * calls) > 2:
+            fail(f"device_ms: {len(spans)} traced {name} over {calls} calls")
+        total += per * statistics.median(e - s for s, e in spans)
+        seen += 1
+    if not seen:
+        fail(f"device_ms: no traced kernel named {names}")
+    return total / 1e3
+
+
 def wall_ms(fn, warmup=2, reps=5):
     """Median host time of ``fn()`` in ms, each call ending in a sync."""
     import torch
@@ -168,22 +238,34 @@ def phase_argmax(gen):
         fail("argmax tie case: ties must go to class 0 with prob 1/C")
     print("argmax tie case: all labels 0, prob 1/19", flush=True)
 
-    b, h, w, c = cases["serving"][0]
-    hh, ww = cases["serving"][1]
-    x = torch.randn((b, h, w, c), generator=gen, device=dev)
-    ms = cuda_ms(lambda: fused_resize_argmax(x, (hh, ww)))
-    plain_ms = cuda_ms(lambda: resize_argmax(x, (hh, ww)))
-    bound_ms, bound_by = bound(b * h * w * c * 4 + b * hh * ww * (4 + 4),
-                               b * hh * ww * c * ARGMAX_OPS_PER_PIXEL_CLASS)
-    print(f"argmax timing [8,110,160,19]->[8,440,640] f32: kernel {ms:.4f} ms,"
-          f" plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
-          flush=True)
+    names = KERNEL_NAMES["fused_resize_argmax"]
+
+    def times(shape, size):
+        b, h, w, c = shape
+        x = torch.randn(shape, generator=gen, device=dev)
+        bound_ms, bound_by = bound(b * h * w * c * 4 + b * size[0] * size[1]
+                                   * (4 + 4), b * size[0] * size[1] * c
+                                   * ARGMAX_OPS_PER_PIXEL_CLASS)
+        return {"ms": cuda_ms(lambda: fused_resize_argmax(x, size)),
+                "device_ms": device_ms(lambda: fused_resize_argmax(x, size),
+                                       names),
+                "plain_ms": cuda_ms(lambda: resize_argmax(x, size)),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+
+    serving = times(*cases["serving"][:2])
+    train = times((2, 128, 128, 19), (512, 512))
+    for what, t in (("[8,110,160,19]->[8,440,640]", serving),
+                    ("[2,128,128,19]->[2,512,512] (DACS step)", train)):
+        print(f"argmax timing {what} f32: device {t['device_ms']:.4f} ms, "
+              f"per call {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
     return {"name": "fused_resize_argmax", "route": "cuda",
             "source": "cmda_tpu_torch/csrc/fused_resize_argmax.cu",
             "replaces": "cmda_tpu/ops/pallas_ce.py:428",
-            "max_abs_err": worst, "ms": ms, "kernel_ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "max_abs_err": worst, **serving, "kernel_ms": serving["ms"],
+            "library_ms": None,
+            "train_shape": {k: train[k] for k in
+                            ("ms", "device_ms", "plain_ms", "bound_ms")}}
 
 
 def _smooth_gray(gen, b, h, w, dev):
@@ -229,15 +311,19 @@ def phase_isr(gen):
     kw = dict(val_range=tuple(p.val_range), threshold=p.threshold,
               clip_range=p.clip_range, shift_pixel=p.shift_pixel)
     ms = cuda_ms(lambda: batched_isr(gray, dirs, **kw))
+    dev_ms = device_ms(lambda: batched_isr(gray, dirs, **kw),
+                       KERNEL_NAMES["batched_isr"])
     plain_ms = cuda_ms(lambda: batched_isr_plain(gray, dirs, **kw), reps=20)
     bound_ms, bound_by = bound(2 * b * h * w * 4 + b * 4,
                                b * h * w * ISR_OPS_PER_PIXEL)
-    print(f"isr timing [8,440,640]: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-          f" ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    print(f"isr timing [8,440,640]: device {dev_ms:.4f} ms, per call "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by})", flush=True)
     return {"name": "batched_isr", "route": "cuda",
             "source": "cmda_tpu_torch/csrc/batched_isr.cu",
             "replaces": "cmda_tpu/ops/pallas_kernels.py:55",
-            "max_abs_err": worst, "ms": ms, "kernel_ms": ms,
+            "max_abs_err": worst, "ms": ms, "device_ms": dev_ms,
+            "kernel_ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
 
@@ -268,9 +354,37 @@ def _grads(fn, x, lbl, wgt):
     return loss.detach(), xg.grad, (wg.grad if wg is not None else None)
 
 
+CE_FLAGSHIP = ((2, 128, 128, 19), (512, 512))
+
+
+def ce_device_times():
+    """Device time of the CE forward and dx at the flagship shape, float32
+    with pixel weights and 5% ignored labels, warm and cold L2, on inputs
+    made from seed 1234 (the same in every checkout, so two checkouts of
+    the kernels compare on one card)."""
+    import torch
+    from cmda_tpu_torch.ops.fused_ce import (fused_resize_ce_dx,
+                                             fused_resize_ce_forward)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+    x, lbl, wgt = _ce_case(gen, *CE_FLAGSHIP, torch.float32,
+                           torch.device("cuda"))
+    g = torch.ones((), device="cuda")
+    _, lse = fused_resize_ce_forward(x, lbl, wgt)
+    calls = {"fwd": (lambda: fused_resize_ce_forward(x, lbl, wgt),
+                     KERNEL_NAMES["fused_resize_ce"]),
+             "dx": (lambda: fused_resize_ce_dx(g, x, lbl, wgt, lse),
+                    KERNEL_NAMES["fused_resize_ce_dx"])}
+    return {k: {"warm": device_ms(fn, names),
+                "cold": device_ms(fn, names, cold=True)}
+            for k, (fn, names) in calls.items()}
+
+
 def phase_ce(gen):
     """Kernels 1-3 (fused upsample+CE forward, dx, dweight) against the
-    plain resize + weighted CE and its autograd gradients, on the card."""
+    plain resize + weighted CE and its autograd gradients, on the card, at
+    the flagship shape and at edge geometries of the tiles; each kernel run
+    twice must give the same bits."""
     import torch
     import torch.nn.functional as F
     from cmda_tpu_torch.ops.fused_ce import (
@@ -278,19 +392,37 @@ def phase_ce(gen):
         fused_resize_ce_forward, resize_ce)
     dev = torch.device("cuda")
     f32, bf16 = torch.float32, torch.bfloat16
-    flagship = ((2, 128, 128, 19), (512, 512))
+    flagship = CE_FLAGSHIP
     cases = {  # name: (shape, size, dtype, weighted, ignored share)
         "flagship_f32": (*flagship, f32, True, 0.05),
         "flagship_bf16": (*flagship, bf16, True, 0.05),
         "nonsquare_3x4": ((2, 32, 40, 19), (96, 160), f32, True, 0.05),
         "all_ignored": ((2, 32, 40, 19), (128, 160), f32, True, 1.0),
         "no_weight": (*flagship, f32, False, 0.05),
+        # both clamps on one coarse pixel; one of them
+        "h1_w1": ((2, 1, 1, 19), (4, 4), f32, True, 0.05),
+        "h1": ((2, 1, 9, 19), (4, 36), f32, True, 0.05),
+        "w1": ((2, 7, 1, 19), (28, 4), f32, True, 0.05),
+        # h and w not multiples of the tiles
+        "ragged": ((2, 37, 45, 19), (148, 180), f32, True, 0.05),
+        "factor_1": ((2, 24, 40, 19), (24, 40), f32, True, 0.05),
+        "fh2_fw3": ((2, 20, 30, 19), (40, 90), f32, True, 0.05),
+        "fh3_fw4": ((2, 21, 33, 19), (63, 132), f32, True, 0.05),
+        "b1": ((1, 64, 64, 19), (256, 256), f32, True, 0.05),
+        "c7": ((2, 32, 40, 7), (128, 160), f32, True, 0.05),
+        # a large C forces the smaller tiles (and over 48 KB of shared
+        # memory for the dx)
+        "c150": ((2, 16, 24, 150), (64, 96), f32, True, 0.05),
     }
     worst = {"loss": 0.0, "dx": 0.0, "dweight": 0.0}
     for name, (shape, size, dtype, weighted, ignored) in cases.items():
         x, lbl, wgt = _ce_case(gen, shape, size, dtype, dev,
                                weighted=weighted, ignored=ignored)
         loss, dx, dw = _grads(fused_resize_ce, x, lbl, wgt)
+        again = _grads(fused_resize_ce, x, lbl, wgt)
+        if not all(torch.equal(a, b) for a, b in zip((loss, dx, dw), again)
+                   if a is not None):
+            fail(f"ce {name}: a second run on the same inputs differs")
         ref, ref_dx, ref_dw = _grads(resize_ce, x, lbl, wgt)
         if name == "all_ignored":
             zeros = (float(loss) == 0.0 and float(dx.abs().max()) == 0.0
@@ -312,8 +444,8 @@ def phase_ce(gen):
         print(f"ce {name} {shape}->{size} {dtype}: loss {float(loss):.7f} vs "
               f"{float(ref):.7f}; errors relative to max|ref| "
               + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-              + f" (tolerance loss {CE_LOSS_RTOL:g}, grads {tol:g})",
-              flush=True)
+              + f" (tolerance loss {CE_LOSS_RTOL:g}, grads {tol:g}); "
+              "bitwise equal on a second run", flush=True)
         if not errs["loss"] <= CE_LOSS_RTOL:
             fail(f"ce {name}: loss relative error {errs['loss']}")
         for k in ("dx", "dweight"):
@@ -332,6 +464,10 @@ def phase_ce(gen):
     ms = {"fwd": cuda_ms(lambda: fused_resize_ce_forward(x, lbl, wgt)),
           "dx": cuda_ms(lambda: fused_resize_ce_dx(g, x, lbl, wgt, lse)),
           "dweight": cuda_ms(lambda: fused_resize_ce_dweight(g, x, lbl, lse))}
+    dev_ms = ce_device_times()
+    dev_ms["dweight"] = {"warm": device_ms(
+        lambda: fused_resize_ce_dweight(g, x, lbl, lse),
+        KERNEL_NAMES["fused_resize_ce_dweight"])}
 
     def plain_fwd_bwd(wrt_weight):
         xg = x.detach().requires_grad_(not wrt_weight)
@@ -372,20 +508,26 @@ def phase_ce(gen):
     out = []
     for k, (kname, replaces) in names.items():
         bound_ms, bound_by = bounds[k]
-        print(f"ce timing {kname} [2,128,128,19]->[2,512,512] f32: kernel "
-              f"{ms[k]:.4f} ms, plain {plain[k]:.4f} ms "
+        d = dev_ms[k]
+        print(f"ce timing {kname} [2,128,128,19]->[2,512,512] f32: device "
+              f"{d['warm']:.4f} ms warm L2"
+              + (f", {d['cold']:.4f} ms cold L2" if "cold" in d else "")
+              + f"; per call {ms[k]:.4f} ms, plain {plain[k]:.4f} ms "
               f"({'forward' if k == 'fwd' else 'forward+backward'}), bound "
               f"{bound_ms:.4f} ms ({bound_by})", flush=True)
         out.append({"name": kname, "route": "cuda",
                     "source": "cmda_tpu_torch/csrc/fused_resize_ce.cu",
                     "replaces": replaces, "max_abs_err": worst[
                         "loss" if k == "fwd" else k],
-                    "ms": ms[k], "kernel_ms": ms[k], "plain_ms": plain[k],
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": None, "library_pair_ms": pair_ms})
-    print(f"ce timing: kernels fwd+dx {ms['fwd'] + ms['dx']:.4f} ms vs plain "
-          f"fwd+bwd {plain['dx']:.4f} ms; F.interpolate + F.cross_entropy "
-          f"(two calls, forward only) {pair_ms:.4f} ms", flush=True)
+                    "ms": ms[k], "device_ms": d["warm"],
+                    "device_ms_cold_l2": d.get("cold"), "kernel_ms": ms[k],
+                    "plain_ms": plain[k], "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None,
+                    "library_pair_ms": pair_ms})
+    print(f"ce timing: kernels fwd+dx {ms['fwd'] + ms['dx']:.4f} ms per call "
+          f"vs plain fwd+bwd {plain['dx']:.4f} ms; F.interpolate + "
+          f"F.cross_entropy (two calls, forward only) {pair_ms:.4f} ms",
+          flush=True)
     return out
 
 
@@ -668,7 +810,8 @@ def phase_train_micro():
 def _device_busy(trainer, state, batch):
     """One step under ``torch.profiler`` (device activity only): (host ms
     of the profiled step, device-busy ms = the union of its kernels' and
-    copies' intervals, number of device events); busy is None when the
+    copies' intervals, number of device events, {kernel name: [launches,
+    device ms]} of the port's kernels in the step); busy is None when the
     trace holds no device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -678,11 +821,16 @@ def _device_busy(trainer, state, batch):
         trainer.train_step(state, batch)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for names in KERNEL_NAMES.values():
+        for n in names:
+            spans = kernel_spans(prof, (n,))
+            kernels[n] = [len(spans), sum(e - s for s, e in spans) / 1e3]
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
-        return host_ms, None, 0
+        return host_ms, None, 0, kernels
     busy, (lo, hi) = 0.0, spans[0]
     for s, e in spans[1:]:
         if s > hi:
@@ -691,7 +839,7 @@ def _device_busy(trainer, state, batch):
         else:
             hi = max(hi, e)
     busy += hi - lo
-    return host_ms, busy / 1e3, len(spans)
+    return host_ms, busy / 1e3, len(spans), kernels
 
 
 def phase_train():
@@ -772,7 +920,8 @@ def phase_train():
               for n, _, top, live in marks[1:]}
     start_gib = marks[0][3] / 2**30
     total = sum(breakdown.values())
-    prof_ms, busy_ms, n_events = _device_busy(trainer, state, batches[9])
+    prof_ms, busy_ms, n_events, step_kernels = _device_busy(
+        trainer, state, batches[9])
     timings = {"train_step_ms_median": statistics.median(step_ms),
                "train_step_ms": step_ms, "train_peak_gib": peak,
                "train_breakdown_ms": breakdown,
@@ -780,13 +929,18 @@ def phase_train():
                "train_section_peak_live_gib": memory,
                "train_profiled_step_ms": prof_ms,
                "train_device_busy_ms": busy_ms,
-               "train_device_events": n_events}
+               "train_device_events": n_events,
+               "train_step_kernels": step_kernels}
     print("train: profiled step " + (
         f"{prof_ms:.2f} ms host, device busy {busy_ms:.2f} ms "
         f"({100 * busy_ms / prof_ms:.1f}%) over {n_events} device events"
         if busy_ms is not None else
         f"{prof_ms:.2f} ms host, device busy not measured (the trace holds "
         "no device event)"), flush=True)
+    print("train: the port's kernels in the profiled step (launches, device "
+          "ms): " + ", ".join(f"{n} {k} x {t:.4f} ms"
+                              for n, (k, t) in step_kernels.items()),
+          flush=True)
     print(f"train: step time median {statistics.median(step_ms):.2f} ms over "
           f"5 steps ({', '.join(f'{t:.2f}' for t in step_ms)}), "
           f"{b / statistics.median(step_ms) * 1e3:.3f} samples/s; peak device "
@@ -802,10 +956,29 @@ def phase_train():
     return totals
 
 
+def ce_device_time_only(root):
+    """``--ce-device-time ROOT``: build the CE kernels of the checkout at
+    ROOT (another commit unpacked beside this one, say) and print one JSON
+    line of their device times at the flagship shape, by the same method
+    and on the same inputs as phase_ce, for a before/after on one card."""
+    sys.path.insert(0, os.path.abspath(root))
+    import cmda_tpu_torch
+    from cmda_tpu_torch.ops import _build
+    _build.build(("fused_resize_ce",))
+    print(json.dumps({"root": root, "package": cmda_tpu_torch.__file__,
+                      "smi": smi_line(), "ce_device_ms": ce_device_times()}),
+          flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
+    if sys.argv[1:2] == ["--ce-device-time"] and len(sys.argv) == 3:
+        ce_device_time_only(sys.argv[2])
+        return
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}")
     from cmda_tpu_torch.ops import _build
     smi = smi_line()
     print(smi, flush=True)
@@ -824,7 +997,8 @@ def main():
     for name, entry in log.items():
         print(f"build {name}: {entry['seconds']:.1f} s", flush=True)
         for line in entry["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     gen = torch.Generator(device="cuda")

@@ -1,5 +1,10 @@
 """Shared building blocks (mirrors cmda_tpu.models.common), NCHW.
 
+Every layer computes in the dtype of its input, as the JAX package's
+modules compute in their ``dtype``: float32 parameters, cast per call, so a
+bfloat16 input runs the matmuls and convolutions in bfloat16 and hands
+bfloat16 activations on, while the norms take their statistics in float32.
+
 Random initialisation follows the reference scheme (truncated normal std
 0.02 for linear layers, fan-out normal for convs) through ``init_weights``,
 which takes an explicit ``torch.Generator``.
@@ -22,6 +27,34 @@ def maybe_checkpoint(fn, *args, remat: bool):
     if remat and torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype, its float32 weights
+    cast to it: a flax ``Dense`` with ``dtype``, as the JAX package's
+    bfloat16 mode runs it (bfloat16 in, bfloat16 out)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype, its float32 weights
+    cast to it (a flax ``Conv`` with ``dtype``)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with its statistics and affine in float32 and its
+    output in the input's dtype (a flax ``LayerNorm`` with ``dtype``)."""
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(x.dtype)
 
 
 class DropPath(nn.Module):
@@ -91,9 +124,9 @@ class ConvBNReLU(nn.Module):
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  dilation: int = 1, groups: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, features, kernel_size,
-                              padding=dilation * (kernel_size // 2),
-                              dilation=dilation, groups=groups, bias=False)
+        self.conv = Conv2d(in_channels, features, kernel_size,
+                           padding=dilation * (kernel_size // 2),
+                           dilation=dilation, groups=groups, bias=False)
         self.bn = StreamBatchNorm(features)
 
     def forward(self, x, bn_train: bool = False, update: bool = True):

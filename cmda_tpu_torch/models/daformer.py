@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import ConvBNReLU
+from .common import ConvBNReLU, Linear
 
 
 @dataclass(frozen=True)
@@ -79,7 +79,7 @@ class MLPEmbed(nn.Module):
 
     def __init__(self, in_channels: int, embed_dim: int):
         super().__init__()
-        self.proj = nn.Linear(in_channels, embed_dim)
+        self.proj = Linear(in_channels, embed_dim)
 
     def forward(self, x):
         return self.proj(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
@@ -134,13 +134,12 @@ class Classifier(nn.Conv2d):
         self.dropout_ratio = dropout_ratio
 
     def forward(self, x, keep: torch.Tensor | None = None):
-        with torch.autocast(x.device.type, enabled=False):
-            x = x.float()
-            if keep is not None and self.dropout_ratio > 0:
-                x = torch.where(keep[:, :, None, None],
-                                x / (1.0 - self.dropout_ratio),
-                                torch.zeros_like(x))
-            return super().forward(x)
+        x = x.float()
+        if keep is not None and self.dropout_ratio > 0:
+            x = torch.where(keep[:, :, None, None],
+                            x / (1.0 - self.dropout_ratio),
+                            torch.zeros_like(x))
+        return super().forward(x)
 
 
 class DAFormerFusionHead(DAFormerDecoder):

@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import DropPath, maybe_checkpoint
+from .common import Conv2d, DropPath, LayerNorm, Linear, maybe_checkpoint
 
 
 @dataclass(frozen=True)
@@ -69,7 +69,7 @@ class DWConv3x3(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.dwconv = nn.Conv2d(dim, dim, 3, padding=1, groups=dim, bias=True)
+        self.dwconv = Conv2d(dim, dim, 3, padding=1, groups=dim, bias=True)
 
     def forward(self, x, hw):
         return map_to_tokens(self.dwconv(tokens_to_map(x, hw)))
@@ -81,9 +81,9 @@ class MixFFN(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  drop_rate: float = 0.0):
         super().__init__()
-        self.fc1 = nn.Linear(in_dim, hidden_dim)
+        self.fc1 = Linear(in_dim, hidden_dim)
         self.dwconv = DWConv3x3(hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, out_dim)
+        self.fc2 = Linear(hidden_dim, out_dim)
         self.drop = nn.Dropout(drop_rate)
 
     def forward(self, x, hw):
@@ -102,14 +102,14 @@ class SRAttention(nn.Module):
         super().__init__()
         self.dim, self.num_heads, self.sr_ratio = dim, num_heads, sr_ratio
         self.scale = (dim // num_heads) ** -0.5
-        self.q = nn.Linear(dim, dim, bias=qkv_bias)
-        self.kv = nn.Linear(dim, dim * 2, bias=qkv_bias)
+        self.q = Linear(dim, dim, bias=qkv_bias)
+        self.kv = Linear(dim, dim * 2, bias=qkv_bias)
         self.attn_drop = nn.Dropout(attn_drop)
-        self.proj = nn.Linear(dim, dim)
+        self.proj = Linear(dim, dim)
         self.proj_drop = nn.Dropout(proj_drop)
         if sr_ratio > 1:
-            self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
-            self.norm = nn.LayerNorm(dim, eps=1e-6)
+            self.sr = Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
+            self.norm = LayerNorm(dim, eps=1e-6)
 
     def forward(self, x, hw):
         b, n, c = x.shape
@@ -136,11 +136,11 @@ class MiTBlock(nn.Module):
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
                  drop_path: float = 0.0):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = SRAttention(dim, num_heads, sr_ratio, qkv_bias,
                                 attn_drop_rate, drop_rate)
         self.drop_path = DropPath(drop_path)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = MixFFN(dim, dim * mlp_ratio, dim, drop_rate)
 
     def forward(self, x, hw, u: torch.Tensor | None = None):
@@ -157,9 +157,9 @@ class OverlapPatchEmbed(nn.Module):
     def __init__(self, patch_size: int, stride: int, in_chans: int,
                  embed_dim: int):
         super().__init__()
-        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=stride,
-                              padding=patch_size // 2)
-        self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
+        self.proj = Conv2d(in_chans, embed_dim, patch_size, stride=stride,
+                           padding=patch_size // 2)
+        self.norm = LayerNorm(embed_dim, eps=1e-6)
 
     def forward(self, x):
         x = self.proj(x)
@@ -191,7 +191,7 @@ class MixVisionTransformer(nn.Module):
                          cfg.sr_ratios[s], cfg.qkv_bias, cfg.drop_rate,
                          cfg.attn_drop_rate, dpr[cur + i])
                 for i in range(cfg.depths[s])]))
-            setattr(self, f"norm{s + 1}", nn.LayerNorm(dim, eps=1e-6))
+            setattr(self, f"norm{s + 1}", LayerNorm(dim, eps=1e-6))
             cur += cfg.depths[s]
 
     def forward(self, x, droppath=None):

@@ -16,7 +16,6 @@ halves, as in the JAX package.
 """
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -53,8 +52,8 @@ OUTPUT_KEYS = {"fusion": "fusion_output", "image": "image_output",
                "events": "events_output", "isr": "img_self_res_output"}
 
 
-def _nchw(x):
-    return None if x is None else x.permute(0, 3, 1, 2)
+def _nchw(x, dtype):
+    return None if x is None else x.permute(0, 3, 1, 2).to(dtype)
 
 
 @dataclass
@@ -86,9 +85,11 @@ def _tensors_to(value, device):
 class FusionEncoderDecoder(nn.Module):
     """Dual-backbone image+events segmentor with feature-level fusion.
 
-    ``dtype='bfloat16'`` runs the convs and matmuls under autocast; the qk
-    softmax, the norms and the classifier stay float32, as in the JAX
-    package's bfloat16 mode."""
+    ``dtype='bfloat16'`` casts the inputs to bfloat16, and every layer
+    computes in the dtype it is handed (``models/common.py``), so the
+    matmuls, convs and residual stream run in bfloat16 while the qk softmax,
+    the norm statistics and the classifier stay float32, as in the JAX
+    package's bfloat16 mode. ``dtype`` may be changed between calls."""
 
     def __init__(self, cfg: SegmentorConfig = SegmentorConfig(),
                  dtype: str = "float32"):
@@ -107,11 +108,6 @@ class FusionEncoderDecoder(nn.Module):
         self.decode_head = DAFormerFusionHead(
             cfg.head, share=cfg.share_decoder, split_cls=cfg.split_cls,
             events_classes=cfg.events_classes)
-
-    def _autocast(self, device):
-        if self.dtype == torch.float32:
-            return contextlib.nullcontext()
-        return torch.autocast(device.type, dtype=self.dtype)
 
     def new_draws(self, batch: int, *, generator: torch.Generator,
                   device: torch.device) -> ForwardDraws:
@@ -194,14 +190,14 @@ class FusionEncoderDecoder(nn.Module):
         if train and draws is None:
             raise ValueError("train=True needs the forward's draws")
         ref = image if image is not None else events
-        with self._autocast(ref.device):
-            feats = self.extract_feat(_nchw(image), _nchw(events),
-                                      _nchw(img_self_res), mode,
-                                      draws if train else None)
-            out = self.decode_head(
-                feats, streams=streams, train=train, bn_train=bn_train,
-                bn_update=bn_update,
-                dropout_keep=draws.dropout_keep if train else None)
+        dt = self.dtype
+        feats = self.extract_feat(_nchw(image, dt), _nchw(events, dt),
+                                  _nchw(img_self_res, dt), mode,
+                                  draws if train else None)
+        out = self.decode_head(
+            feats, streams=streams, train=train, bn_train=bn_train,
+            bn_update=bn_update,
+            dropout_keep=draws.dropout_keep if train else None)
         out = {k: (v.permute(0, 2, 3, 1) if v is not None else None)
                for k, v in out.items()}
         if resize_to_input:

@@ -2,8 +2,9 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, which is loaded with ``ctypes``. The
-library name carries a hash of the source and the flags, so an edited
-source is never served by a stale build. Builds go under ``build/`` at the
+library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is never
+served by a stale build. Builds go under ``build/`` at the
 repository root (git-ignored). Nothing here runs at import time: the CPU
 tests import every module and have no ``nvcc``.
 """
@@ -42,7 +43,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source, every shared header it may include, and the flags
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 

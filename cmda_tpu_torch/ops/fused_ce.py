@@ -83,11 +83,35 @@ def _geometry(logits, labels):
     return [b, h, w, c, hh // h, ww // w]
 
 
-def _fn(lib, name, n_ptr):
-    fn = getattr(lib, name)
-    fn.restype = _I
-    fn.argtypes = [_P] * n_ptr + [_I] * 7 + [_P]
+_ENTRIES: dict = {}   # entry-point name -> ctypes function
+
+
+def _entry(lib, name, argtypes, restype=_I):
+    """A C entry point with its ctypes signature, set once per name."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
+        _ENTRIES[name] = fn
     return fn
+
+
+def _fn(lib, name, n_ptr):
+    return _entry(lib, name, [_P] * n_ptr + [_I] * 7 + [_P])
+
+
+_DONE: dict = {}   # (device index, stream) -> the forward's block counter
+
+
+def _done_counter(device, stream):
+    """The forward kernel's count of finished blocks on ``stream``: zero
+    when allocated, and the kernel leaves it at zero. Launches on one
+    stream run in turn, so each stream needs only one."""
+    key = (device.index, stream)
+    done = _DONE.get(key)
+    if done is None:
+        done = _DONE[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return done
 
 
 def _suffix(logits):
@@ -114,19 +138,21 @@ def fused_resize_ce_forward(logits, labels, weight=None, *,
     _check(logits, labels, weight)
     _check_cuda(logits, labels, weight)
     lib = _build.load(_LIB)
-    n_fine = labels.numel()
-    count = lib.cmda_fused_resize_ce_num_partials
-    count.restype, count.argtypes = ctypes.c_longlong, [ctypes.c_longlong]
-    partials = torch.empty(max(int(count(n_fine)), 1), dtype=torch.float32,
-                           device=logits.device)
     lse = torch.empty(labels.shape, dtype=torch.float32, device=logits.device)
-    loss = torch.zeros((), dtype=torch.float32, device=logits.device)
-    if n_fine == 0:
-        return loss, lse
-    fn = _fn(lib, f"cmda_fused_resize_ce_fwd_{_suffix(logits)}", 6)
-    _launch(fn, lib, "fused_resize_ce", logits.device, logits, labels,
-            weight, lse, partials, loss, *_geometry(logits, labels),
-            int(ignore_index))
+    if labels.numel() == 0:
+        return torch.zeros((), dtype=torch.float32, device=logits.device), lse
+    geometry = _geometry(logits, labels)
+    count = _entry(lib, "cmda_fused_resize_ce_num_partials", [_I] * 6,
+                   ctypes.c_longlong)
+    partials = torch.empty(int(count(*geometry)), dtype=torch.float32,
+                           device=logits.device)
+    # the kernel writes the loss
+    loss = torch.empty((), dtype=torch.float32, device=logits.device)
+    fn = _fn(lib, f"cmda_fused_resize_ce_fwd_{_suffix(logits)}", 7)
+    dev = logits.device
+    done = _done_counter(dev, torch.cuda.current_stream(dev).cuda_stream)
+    _launch(fn, lib, "fused_resize_ce", dev, logits, labels, weight, lse,
+            partials, done, loss, *geometry, int(ignore_index))
     fused_resize_ce.launches += 1
     return loss, lse
 

@@ -1,7 +1,10 @@
 """The port's fused upsample+CE (its plain version on the CPU, which the
 CUDA kernels are held against on the card) against the JAX package's Pallas
 kernel in interpret mode, values and gradients, at the shapes of
-tests/test_pallas.py.
+tests/test_pallas.py and at the edge geometries of the CUDA kernels' tiles.
+The Pallas kernel's transposed shifts need two coarse rows and columns, so
+at h = 1 or w = 1 the reference is the JAX package's XLA path,
+``weighted_cross_entropy(resize_bilinear(...))``.
 
 Tolerances: the loss to rtol 1e-5 (float32 sums of O(1) terms); dx and
 dweight, which are O(1/N), to 1e-4 of the reference's largest magnitude."""
@@ -16,6 +19,7 @@ from cmda_tpu.ops.pallas_ce import fused_resize_ce as j_fused_resize_ce
 from cmda_tpu_torch.ops.fused_ce import fused_resize_ce, resize_ce
 from cmda_tpu_torch.ops.losses import pixel_accuracy, weighted_cross_entropy
 from cmda_tpu.ops import losses as jlosses
+from cmda_tpu.ops.resize import resize_bilinear as j_resize_bilinear
 
 LOSS_RTOL = 1e-5
 GRAD_REL = 1e-4
@@ -43,6 +47,16 @@ def _jax(x, lbl, wgt):
     return np.asarray(loss), np.asarray(gx), np.asarray(gw)
 
 
+def _xla(x, lbl, wgt):
+    """The JAX package's unfused loss, d/dx and d/dweight."""
+    def f(a, wt):
+        return jlosses.weighted_cross_entropy(
+            j_resize_bilinear(a, lbl.shape[1:3]), jnp.asarray(lbl), wt)
+    loss, (gx, gw) = jax.value_and_grad(f, argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(wgt))
+    return np.asarray(loss), np.asarray(gx), np.asarray(gw)
+
+
 def _torch(x, lbl, wgt):
     xt = torch.from_numpy(x).requires_grad_(True)
     wt = (torch.from_numpy(wgt).requires_grad_(True) if wgt is not None
@@ -60,16 +74,20 @@ def _assert_rel(got, ref, what):
 
 
 @pytest.mark.parametrize("case", ["square_weighted", "square_no_weight",
-                                  "nonsquare_3x4", "factor_1"])
+                                  "nonsquare_3x4", "factor_1", "h1",
+                                  "b1_w1", "fh2_fw3", "c7"])
 def test_fused_resize_ce_matches_pallas(case):
     kw = {"square_weighted": {}, "square_no_weight": {},
           "nonsquare_3x4": dict(seed=2, fh=3, fw=4),
-          "factor_1": dict(seed=3, fh=1, fw=1)}[case]
+          "factor_1": dict(seed=3, fh=1, fw=1),
+          "h1": dict(seed=6, h=1, w=6), "b1_w1": dict(seed=7, b=1, w=1),
+          "fh2_fw3": dict(seed=8, fh=2, fw=3), "c7": dict(seed=9, c=7)}[case]
     x, lbl, wgt = _case(**kw)
     if case == "square_no_weight":
         wgt = None
     loss, gx, gw = _torch(x, lbl, wgt)
-    ref, rgx, rgw = _jax(x, lbl, wgt)
+    reference = _xla if case in ("h1", "b1_w1") else _jax
+    ref, rgx, rgw = reference(x, lbl, wgt)
     np.testing.assert_allclose(loss, ref, rtol=LOSS_RTOL)
     _assert_rel(gx, rgx, "dx")
     if wgt is not None:

@@ -2,18 +2,26 @@
 """Drive the PyTorch/CUDA port (cmda_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one GPU
-    python3 chip_smoke.py --ce-device-time ROOT
-        # only the CE forward and dx device times of the checkout at ROOT
+    python3 chip_smoke.py --device-time ROOT
+        # only the device and per-call times of every port kernel of the
+        # checkout at ROOT, at the points the main paths launch them
 
 Phases, any failure exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc (sm_90a), print build times
      and ptxas register/spill reports;
-  3. hold each kernel against its plain PyTorch version on the card, at the
-     serving shapes, and time both beside the bound: per call with CUDA
-     events (the wrapper's host work included), and the kernels' own device
-     time, the sum of their durations in a ``torch.profiler`` trace, median
-     of 20 calls (``device_ms``);
+  3. time every port kernel at the shapes and flags the main paths launch
+     it (``port_kernel_times``): per call with CUDA events (the wrapper's
+     host work and the gaps between a call's launches included) and the
+     kernels' own device time, the sum of their durations in a
+     ``torch.profiler`` trace, median of 20 calls (``device_ms``); then hold
+     the argmax and ISR kernels against their plain PyTorch versions on the
+     card, at those shapes and at the tiles' edge geometries (h or w of 1,
+     sizes off the tile, factors 1, 2x3 and 3x4, B = 1, C = 7 and 150, bf16,
+     with and without the prob; ISR shifts 1-3, both presets, H = 1,
+     W = shift + 1, a frame larger than the resident threads hold), each
+     run twice giving the same bits, and time the plain versions beside
+     the bound;
   4. the main path at full width: the cs2dsec MiT-b5 FusionEncoderDecoder
      (random weights from a seed) through ``inference_segmentor`` on a
      440x640 PNG, image-only (on-the-fly ISR kernel + fused upsample+argmax
@@ -60,10 +68,13 @@ import numpy as np
 # tensor cores; the bounds below are computed from these and the shapes
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
-# operations per (output pixel, class) of the fused upsample+argmax: a
-# 3-flop two-tap blend at 2 column taps and 1 for the columns (9), max
-# compare, subtract, exp, add (4)
-ARGMAX_OPS_PER_PIXEL_CLASS = 13
+# operations per (output pixel, class) of the fused upsample+argmax, as
+# the function needs them: a 3-flop two-tap column blend, the 3-flop row
+# blend shared by the fw pixels of a coarse column, and a compare; the prob
+# adds a subtract, an exp and an add
+ARGMAX_OPS_PER_PIXEL_CLASS = 4
+ARGMAX_ROW_BLEND_OPS = 3
+ARGMAX_PROB_OPS_PER_PIXEL_CLASS = 3
 # operations per pixel of the ISR: two directions x (2 x (mul, add, log),
 # sub, abs-compare, 2 clamps, 2 x (sub, div, add)) + the average (3)
 ISR_OPS_PER_PIXEL = 2 * (2 * 3 + 1 + 1 + 2 + 2 * 3) + 3
@@ -114,15 +125,21 @@ def cuda_ms(fn, warmup=3, reps=20):
 
 
 # the kernels each wrapper launches, as the profiler names them; a call's
-# device time is the sum of these kernels' durations in a trace. The CE
-# forward of PR 2 also launched sum_partials_kernel; it is listed so that
-# --ce-device-time times an older checkout the same way.
+# device time is the sum of these kernels' durations in a trace
 KERNEL_NAMES = {
-    "fused_resize_argmax": ("resize_argmax_kernel",),
-    "batched_isr": ("init_extrema", "isr_reduce", "isr_write"),
-    "fused_resize_ce": ("ce_fwd_kernel", "sum_partials_kernel"),
+    "fused_resize_argmax": ("argmax_tile_kernel",),
+    "batched_isr": ("isr_grid_kernel",),
+    "fused_resize_ce": ("ce_fwd_kernel",),
     "fused_resize_ce_dx": ("ce_dx_kernel",),
     "fused_resize_ce_dweight": ("ce_dweight_kernel",),
+}
+# the kernels of earlier designs, matched only when --device-time times an
+# older checkout: a second launch of the CE forward, the one-thread-per-pixel
+# argmax and the three-launch ISR
+EARLIER_KERNEL_NAMES = {
+    "fused_resize_argmax": ("resize_argmax_kernel",),
+    "batched_isr": ("init_extrema", "isr_reduce", "isr_write"),
+    "fused_resize_ce": ("sum_partials_kernel",),
 }
 # bytes written between calls for a cold-L2 reading (the H100's L2 is 50 MB)
 L2_FLUSH_BYTES = 256 * 2**20
@@ -138,14 +155,15 @@ def kernel_spans(prof, names):
                   and any(n in e.name for n in names))
 
 
-def device_ms(fn, names, calls=20, warmup=3, cold=False):
+def device_ms(fn, names, calls=20, warmup=3, cold=False, tries=3):
     """Device time of one call of ``fn()`` in ms, the wrapper's host work
     and launch gaps left out: over ``calls`` calls in a ``torch.profiler``
     trace, the median duration of each of the call's own kernels
     (``names``) times its launches per call, summed. Taken per kernel, so
-    an event the trace drops shifts no kernel onto another call. ``cold``
-    writes L2_FLUSH_BYTES between calls, so each call finds its inputs
-    outside L2."""
+    an event the trace drops shifts no kernel onto another call; a trace
+    that dropped more than 2 of a kernel's events, or all of them, is taken
+    again, up to ``tries`` traces. ``cold`` writes L2_FLUSH_BYTES between
+    calls, so each call finds its inputs outside L2."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     flush = (torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold
@@ -153,24 +171,32 @@ def device_ms(fn, names, calls=20, warmup=3, cold=False):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            if flush is not None:
-                flush.fill_(1.0)
-            fn()
-            torch.cuda.synchronize()
-    total, seen = 0.0, 0
-    for name in names:
-        spans = kernel_spans(prof, (name,))
-        if not spans:   # not a kernel of this checkout
-            continue
-        per = round(len(spans) / calls)
-        if per == 0 or abs(len(spans) - per * calls) > 2:
-            fail(f"device_ms: {len(spans)} traced {name} over {calls} calls")
-        total += per * statistics.median(e - s for s, e in spans)
-        seen += 1
-    if not seen:
-        fail(f"device_ms: no traced kernel named {names}")
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                if flush is not None:
+                    flush.fill_(1.0)
+                fn()
+                torch.cuda.synchronize()
+        total, seen, short = 0.0, 0, None
+        for name in names:
+            spans = kernel_spans(prof, (name,))
+            if not spans:   # not a kernel of this checkout
+                continue
+            per = round(len(spans) / calls)
+            if per == 0 or abs(len(spans) - per * calls) > 2:
+                short = f"{len(spans)} traced {name} over {calls} calls"
+                break
+            total += per * statistics.median(e - s for s, e in spans)
+            seen += 1
+        if short is None and not seen:
+            short = f"no traced kernel named {names}"
+        if short is None:
+            break
+        print(f"device_ms: trace {attempt + 1} of {tries} holds {short}; "
+              "tracing again", flush=True)
+    if short is not None:
+        fail(f"device_ms: {short} in each of {tries} traces")
     return total / 1e3
 
 
@@ -209,63 +235,43 @@ def check_labels(label, ref_label, z, what):
     return n_bad
 
 
-def phase_argmax(gen):
-    import torch
-    from cmda_tpu_torch.ops.fused_resize import (fused_resize_argmax,
-                                                 resize_argmax)
-    from cmda_tpu_torch.ops.resize import resize_bilinear
-    dev = torch.device("cuda")
-    cases = {"serving": ((8, 110, 160, 19), (440, 640), torch.float32),
-             "nonsquare": ((2, 28, 40, 19), (84, 160), torch.float32),
-             "serving_bf16": ((8, 110, 160, 19), (440, 640), torch.bfloat16)}
-    worst = 0.0
-    for name, (shape, size, dtype) in cases.items():
-        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
-        label, prob = fused_resize_argmax(x, size)
-        ref_label, ref_prob = resize_argmax(x, size)
-        torch.cuda.synchronize()
-        z = resize_bilinear(x.float(), size)
-        n_bad = check_labels(label, ref_label, z, f"argmax {name}")
-        err = float((prob - ref_prob).abs().max())
-        print(f"argmax {name} {shape}->{size} {dtype}: max|dprob| {err:.3g}, "
-              f"label mismatches {n_bad} (all at near ties)", flush=True)
-        if not err <= ARGMAX_TOL:
-            fail(f"argmax {name}: prob error {err}")
-        worst = max(worst, err)
-    tie = torch.full((2, 6, 10, 19), 0.5, device=dev)
-    label, prob = fused_resize_argmax(tie, (24, 40))
-    if int(label.abs().sum()) != 0 or float((prob - 1 / 19).abs().max()) > 1e-6:
-        fail("argmax tie case: ties must go to class 0 with prob 1/C")
-    print("argmax tie case: all labels 0, prob 1/19", flush=True)
+def argmax_bound(shape, size, with_prob):
+    """(bound ms, bound_by) of the upsample+argmax: the float32 logits read
+    once, labels (and prob) written once, against ARGMAX_* operations."""
+    b, h, w, c = shape
+    n = b * size[0] * size[1]
+    nbytes = b * h * w * c * 4 + n * 4 * (2 if with_prob else 1)
+    per = (ARGMAX_OPS_PER_PIXEL_CLASS + ARGMAX_ROW_BLEND_OPS / (size[1] // w)
+           + (ARGMAX_PROB_OPS_PER_PIXEL_CLASS if with_prob else 0))
+    return bound(nbytes, n * c * per)
 
-    names = KERNEL_NAMES["fused_resize_argmax"]
 
-    def times(shape, size):
-        b, h, w, c = shape
-        x = torch.randn(shape, generator=gen, device=dev)
-        bound_ms, bound_by = bound(b * h * w * c * 4 + b * size[0] * size[1]
-                                   * (4 + 4), b * size[0] * size[1] * c
-                                   * ARGMAX_OPS_PER_PIXEL_CLASS)
-        return {"ms": cuda_ms(lambda: fused_resize_argmax(x, size)),
-                "device_ms": device_ms(lambda: fused_resize_argmax(x, size),
-                                       names),
-                "plain_ms": cuda_ms(lambda: resize_argmax(x, size)),
-                "bound_ms": bound_ms, "bound_by": bound_by}
+def isr_bound(b, h, w):
+    """(bound ms, bound_by) of the ISR: gray read and the output written
+    once, the directions read once."""
+    return bound(2 * b * h * w * 4 + b * 4, b * h * w * ISR_OPS_PER_PIXEL)
 
-    serving = times(*cases["serving"][:2])
-    train = times((2, 128, 128, 19), (512, 512))
-    for what, t in (("[8,110,160,19]->[8,440,640]", serving),
-                    ("[2,128,128,19]->[2,512,512] (DACS step)", train)):
-        print(f"argmax timing {what} f32: device {t['device_ms']:.4f} ms, "
-              f"per call {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
-    return {"name": "fused_resize_argmax", "route": "cuda",
-            "source": "cmda_tpu_torch/csrc/fused_resize_argmax.cu",
-            "replaces": "cmda_tpu/ops/pallas_ce.py:428",
-            "max_abs_err": worst, **serving, "kernel_ms": serving["ms"],
-            "library_ms": None,
-            "train_shape": {k: train[k] for k in
-                            ("ms", "device_ms", "plain_ms", "bound_ms")}}
+
+# the upsample+argmax where the main paths launch it: name -> (logits shape,
+# output size, with_prob)
+ARGMAX_POINTS = {
+    # evaluate_fusion at batch 8 and inference_segmentor: labels only
+    "serving_b8": ((8, 110, 160, 19), (440, 640), False),
+    "serving_b1": ((1, 110, 160, 19), (440, 640), False),
+    # the DACS step: the teacher's pseudo-labels with the prob, the two
+    # stream accuracies without
+    "step_prob": ((2, 128, 128, 19), (512, 512), True),
+    "step": ((2, 128, 128, 19), (512, 512), False),
+    # the serving shape with the prob, timed by earlier checkouts
+    "serving_b8_prob": ((8, 110, 160, 19), (440, 640), True),
+}
+# the ISR where the main paths launch it: name -> [B, H, W]
+ISR_POINTS = {
+    "serving_b1": (1, 440, 640),     # image-only inference_segmentor
+    "serving_all": (2, 440, 640),    # the same with shift_type='all'
+    "step": (2, 512, 512),           # the DACS step's mixed ISR
+    "b8": (8, 440, 640),             # timed by earlier checkouts
+}
 
 
 def _smooth_gray(gen, b, h, w, dev):
@@ -276,56 +282,227 @@ def _smooth_gray(gen, b, h, w, dev):
     return (base + steps.cumsum(dim=2)).clamp(0, 255).float()
 
 
-def phase_isr(gen):
+def _isr_kw(p, shift=None):
+    return dict(val_range=tuple(p.val_range), threshold=p.threshold,
+                clip_range=p.clip_range,
+                shift_pixel=p.shift_pixel if shift is None else shift)
+
+
+def port_kernel_times(earlier=False):
+    """Device time (``device_ms``) and per-call time (``cuda_ms``) of every
+    port kernel at the points the main paths launch it: the CE forward
+    (also with cold L2) and dx at the flagship loss, ARGMAX_POINTS and
+    ISR_POINTS (the cs2dsec ISR preset). Inputs come from seed 1234, the
+    same in every checkout, so two checkouts compare on one card;
+    ``earlier`` also matches EARLIER_KERNEL_NAMES. Returns {point:
+    {"device_ms", "ms", "args"}}, ``args`` the inputs timed."""
+    import torch
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.ops.fused_ce import (fused_resize_ce_dx,
+                                             fused_resize_ce_forward)
+    from cmda_tpu_torch.ops.fused_resize import fused_resize_argmax
+    from cmda_tpu_torch.ops.isr_kernel import batched_isr
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+
+    def names(kernel):
+        return KERNEL_NAMES[kernel] + (EARLIER_KERNEL_NAMES.get(kernel, ())
+                                       if earlier else ())
+    x, lbl, wgt = _ce_case(gen, *CE_FLAGSHIP, torch.float32, dev)
+    g = torch.ones((), device=dev)
+    _, lse = fused_resize_ce_forward(x, lbl, wgt)
+    calls = {
+        "ce_fwd": (lambda: fused_resize_ce_forward(x, lbl, wgt),
+                   names("fused_resize_ce"), (x, lbl, wgt)),
+        "ce_dx": (lambda: fused_resize_ce_dx(g, x, lbl, wgt, lse),
+                  names("fused_resize_ce_dx"), (g, x, lbl, wgt, lse)),
+    }
+    for name, (shape, size, with_prob) in ARGMAX_POINTS.items():
+        xa = torch.randn(shape, generator=gen, device=dev)
+        calls[f"argmax_{name}"] = (
+            lambda xa=xa, size=size, with_prob=with_prob: fused_resize_argmax(
+                xa, size, with_prob=with_prob),
+            names("fused_resize_argmax"), (xa, size, with_prob))
+    kw = _isr_kw(C.cs2dsec_image_events_b5().data.target_isr)
+    for name, (b, h, w) in ISR_POINTS.items():
+        gray = _smooth_gray(gen, b, h, w, dev)
+        dirs = torch.arange(b, dtype=torch.int32, device=dev) % 4
+        calls[f"isr_{name}"] = (
+            lambda gray=gray, dirs=dirs: batched_isr(gray, dirs, **kw),
+            names("batched_isr"), (gray, dirs, kw))
+    out = {k: {"device_ms": device_ms(fn, nm), "ms": cuda_ms(fn),
+               "args": args}
+           for k, (fn, nm, args) in calls.items()}
+    for k in ("ce_fwd", "ce_dx"):
+        fn, nm, _ = calls[k]
+        out[k]["device_ms_cold_l2"] = device_ms(fn, nm, cold=True)
+    return out
+
+
+def _bitwise_repeat(fn, what):
+    """fn() twice on the same inputs: the same bits, or fail."""
+    import torch
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    for u, v in zip(a if isinstance(a, tuple) else (a,),
+                    b if isinstance(b, tuple) else (b,)):
+        if (u is None) != (v is None) or (u is not None
+                                          and not torch.equal(u, v)):
+            fail(f"{what}: a second run on the same inputs differs")
+    return a
+
+
+def phase_argmax(gen, times):
+    """The upsample+argmax kernel against ``resize_argmax`` with and without
+    the prob, at the main paths' shapes and the tiles' edge geometries,
+    each run twice giving the same bits; then its times at ARGMAX_POINTS
+    beside the plain version's and the bound."""
+    import torch
+    from cmda_tpu_torch.ops.fused_resize import (fused_resize_argmax,
+                                                 resize_argmax)
+    from cmda_tpu_torch.ops.resize import resize_bilinear
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = {  # name: (shape, size, dtype)
+        "serving_b8": ((8, 110, 160, 19), (440, 640), f32),
+        "serving_b8_bf16": ((8, 110, 160, 19), (440, 640), bf16),
+        "serving_b1": ((1, 110, 160, 19), (440, 640), f32),
+        "step": ((2, 128, 128, 19), (512, 512), f32),
+        "nonsquare": ((2, 28, 40, 19), (84, 160), f32),
+        # both clamps on one coarse pixel; one of them
+        "h1_w1": ((2, 1, 1, 19), (4, 4), f32),
+        "h1": ((2, 1, 9, 19), (4, 36), f32),
+        "w1": ((2, 7, 1, 19), (28, 4), f32),
+        # h and w not multiples of the tile
+        "ragged": ((2, 37, 45, 19), (148, 180), f32),
+        "factor_1": ((2, 24, 40, 19), (24, 40), f32),
+        "fh2_fw3": ((2, 20, 30, 19), (40, 90), f32),
+        "fh3_fw4": ((2, 21, 33, 19), (63, 132), f32),
+        "c7": ((2, 32, 40, 7), (128, 160), f32),
+        # a large C forces a smaller tile and over 48 KB of shared memory
+        "c150": ((2, 16, 24, 150), (64, 96), f32),
+        "c150_bf16": ((2, 16, 24, 150), (64, 96), bf16),
+    }
+    worst = 0.0
+    for name, (shape, size, dtype) in cases.items():
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        z = resize_bilinear(x.float(), size)
+        for with_prob in (True, False):
+            label, prob = _bitwise_repeat(
+                lambda: fused_resize_argmax(x, size, with_prob=with_prob),
+                f"argmax {name} with_prob={with_prob}")
+            ref_label, ref_prob = resize_argmax(x, size, with_prob=with_prob)
+            n_bad = check_labels(label, ref_label, z,
+                                 f"argmax {name} with_prob={with_prob}")
+            if with_prob:
+                err = float((prob - ref_prob).abs().max())
+                if not err <= ARGMAX_TOL:
+                    fail(f"argmax {name}: prob error {err}")
+                worst = max(worst, err)
+            elif prob is not None:
+                fail(f"argmax {name}: a prob without with_prob")
+            print(f"argmax {name} {shape}->{size} {dtype} with_prob="
+                  f"{with_prob}: "
+                  + (f"max|dprob| {err:.3g}, " if with_prob else "")
+                  + f"label mismatches {n_bad} (all at near ties); "
+                  "bitwise equal on a second run", flush=True)
+        del z
+    tie = torch.full((2, 6, 10, 19), 0.5, device=dev)
+    for with_prob in (True, False):
+        label, prob = fused_resize_argmax(tie, (24, 40), with_prob=with_prob)
+        if int(label.abs().sum()) != 0 or (
+                with_prob and float((prob - 1 / 19).abs().max()) > 1e-6):
+            fail("argmax tie case: ties must go to class 0 with prob 1/C")
+    print("argmax tie case: all labels 0, prob 1/19", flush=True)
+
+    points = {}
+    for name, (shape, size, with_prob) in ARGMAX_POINTS.items():
+        t = times[f"argmax_{name}"]
+        xa = t["args"][0]
+        bound_ms, bound_by = argmax_bound(shape, size, with_prob)
+        points[name] = {
+            "device_ms": t["device_ms"], "ms": t["ms"],
+            "plain_ms": cuda_ms(lambda: resize_argmax(
+                xa, size, with_prob=with_prob)),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        q = points[name]
+        print(f"argmax timing {name} {list(shape)}->{list(size)} f32 "
+              f"with_prob={with_prob}: device {q['device_ms']:.4f} ms, per "
+              f"call {q['ms']:.4f} ms, plain {q['plain_ms']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    main = points["serving_b8"]
+    return {"name": "fused_resize_argmax", "route": "cuda",
+            "source": "cmda_tpu_torch/csrc/fused_resize_argmax.cu",
+            "replaces": "cmda_tpu/ops/pallas_ce.py:428",
+            "max_abs_err": worst, **main, "library_ms": None,
+            "point": "serving_b8", "points": points}
+
+
+def phase_isr(gen, times):
+    """The ISR kernel against ``batched_isr_plain`` at the main paths'
+    shapes, both presets and shifts 1-3, and at H = 1, W = shift + 1 and a
+    frame larger than the resident threads hold, each run twice giving the
+    same bits; then its times at ISR_POINTS beside the plain version's and
+    the bound."""
     import torch
     from cmda_tpu_torch import config as C
     from cmda_tpu_torch.ops.isr_kernel import batched_isr, batched_isr_plain
     dev = torch.device("cuda")
-    b, h, w = 8, 440, 640
-    gray = _smooth_gray(gen, b, h, w, dev)
-    dirs = torch.tensor([0, 1, 2, 3] * 2, dtype=torch.int32, device=dev)
-    worst = 0.0
     presets = {"cs2dsec": C.cs2dsec_image_events_b5().data.target_isr,
                "cs2dz": C.cs2dz_image_rawisr_b5().data.target_isr}
-    for name, p in presets.items():
-        kw = dict(val_range=tuple(p.val_range), threshold=p.threshold,
-                  clip_range=p.clip_range, shift_pixel=p.shift_pixel)
-        out = batched_isr(gray, dirs, **kw)
+    shapes = dict(ISR_POINTS)
+    shapes["large"] = (8, 1080, 1920)
+    cases = [(name, shape, preset, shift) for name, shape in shapes.items()
+             for preset in presets for shift in (1, 2, 3)]
+    # W = shift + 1: one column of each kind; one row (the shift may not
+    # exceed H)
+    cases += [(f"w_shift{shift}+1", (2, 440, shift + 1), preset, shift)
+              for preset in presets for shift in (1, 2, 3)]
+    cases += [("h1", (2, 1, 640), preset, 1) for preset in presets]
+    worst = 0.0
+    for name, (b, h, w), preset, shift in cases:
+        gray = _smooth_gray(gen, b, h, w, dev)
+        dirs = (torch.arange(b, dtype=torch.int32, device=dev) + shift) % 4
+        kw = _isr_kw(presets[preset], shift)
+        out = _bitwise_repeat(lambda: batched_isr(gray, dirs, **kw),
+                              f"isr {name} {preset} shift {shift}")
         ref = batched_isr_plain(gray, dirs, **kw)
         torch.cuda.synchronize()
         diff = (out - ref).abs()
         err = float(diff.max())
         flagged = (diff > ISR_TOL).nonzero().tolist()
-        print(f"isr {name} [8,440,640] dirs 0-3 x2 shift {p.shift_pixel}: "
-              f"max|d| {err:.3g}, pixels over {ISR_TOL}: {len(flagged)}",
+        print(f"isr {name} [{b},{h},{w}] {preset} shift {shift} dirs "
+              f"{dirs.tolist()[:4]}: max|d| {err:.3g}, pixels over "
+              f"{ISR_TOL}: {len(flagged)}; bitwise equal on a second run",
               flush=True)
         for bi, y, x in flagged[:10]:   # a dead-zone flip shows here
             print(f"  isr {name} pixel (b={bi}, y={y}, x={x}): kernel "
                   f"{float(out[bi, y, x]):.6f} plain {float(ref[bi, y, x]):.6f}"
                   f" gray {float(gray[bi, y, x])}", flush=True)
         if flagged:
-            fail(f"isr {name}: {len(flagged)} pixels differ by more than "
-                 f"{ISR_TOL}")
+            fail(f"isr {name} {preset} shift {shift}: {len(flagged)} pixels "
+                 f"differ by more than {ISR_TOL}")
         worst = max(worst, err)
-    p = presets["cs2dsec"]
-    kw = dict(val_range=tuple(p.val_range), threshold=p.threshold,
-              clip_range=p.clip_range, shift_pixel=p.shift_pixel)
-    ms = cuda_ms(lambda: batched_isr(gray, dirs, **kw))
-    dev_ms = device_ms(lambda: batched_isr(gray, dirs, **kw),
-                       KERNEL_NAMES["batched_isr"])
-    plain_ms = cuda_ms(lambda: batched_isr_plain(gray, dirs, **kw), reps=20)
-    bound_ms, bound_by = bound(2 * b * h * w * 4 + b * 4,
-                               b * h * w * ISR_OPS_PER_PIXEL)
-    print(f"isr timing [8,440,640]: device {dev_ms:.4f} ms, per call "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by})", flush=True)
+
+    points = {}
+    for name, (b, h, w) in ISR_POINTS.items():
+        t = times[f"isr_{name}"]
+        gray, dirs, kw = t["args"]
+        bound_ms, bound_by = isr_bound(b, h, w)
+        points[name] = {
+            "device_ms": t["device_ms"], "ms": t["ms"],
+            "plain_ms": cuda_ms(lambda: batched_isr_plain(gray, dirs, **kw)),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        q = points[name]
+        print(f"isr timing {name} [{b},{h},{w}]: device {q['device_ms']:.4f} "
+              f"ms, per call {q['ms']:.4f} ms, plain {q['plain_ms']:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
     return {"name": "batched_isr", "route": "cuda",
             "source": "cmda_tpu_torch/csrc/batched_isr.cu",
             "replaces": "cmda_tpu/ops/pallas_kernels.py:55",
-            "max_abs_err": worst, "ms": ms, "device_ms": dev_ms,
-            "kernel_ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "max_abs_err": worst, **points["serving_b1"], "library_ms": None,
+            "point": "serving_b1", "points": points}
 
 
 def _ce_case(gen, shape, size, dtype, dev, *, weighted=True, ignored=0.05):
@@ -357,30 +534,7 @@ def _grads(fn, x, lbl, wgt):
 CE_FLAGSHIP = ((2, 128, 128, 19), (512, 512))
 
 
-def ce_device_times():
-    """Device time of the CE forward and dx at the flagship shape, float32
-    with pixel weights and 5% ignored labels, warm and cold L2, on inputs
-    made from seed 1234 (the same in every checkout, so two checkouts of
-    the kernels compare on one card)."""
-    import torch
-    from cmda_tpu_torch.ops.fused_ce import (fused_resize_ce_dx,
-                                             fused_resize_ce_forward)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1234)
-    x, lbl, wgt = _ce_case(gen, *CE_FLAGSHIP, torch.float32,
-                           torch.device("cuda"))
-    g = torch.ones((), device="cuda")
-    _, lse = fused_resize_ce_forward(x, lbl, wgt)
-    calls = {"fwd": (lambda: fused_resize_ce_forward(x, lbl, wgt),
-                     KERNEL_NAMES["fused_resize_ce"]),
-             "dx": (lambda: fused_resize_ce_dx(g, x, lbl, wgt, lse),
-                    KERNEL_NAMES["fused_resize_ce_dx"])}
-    return {k: {"warm": device_ms(fn, names),
-                "cold": device_ms(fn, names, cold=True)}
-            for k, (fn, names) in calls.items()}
-
-
-def phase_ce(gen):
+def phase_ce(gen, times):
     """Kernels 1-3 (fused upsample+CE forward, dx, dweight) against the
     plain resize + weighted CE and its autograd gradients, on the card, at
     the flagship shape and at edge geometries of the tiles; each kernel run
@@ -388,8 +542,7 @@ def phase_ce(gen):
     import torch
     import torch.nn.functional as F
     from cmda_tpu_torch.ops.fused_ce import (
-        fused_resize_ce, fused_resize_ce_dweight, fused_resize_ce_dx,
-        fused_resize_ce_forward, resize_ce)
+        fused_resize_ce, fused_resize_ce_dweight, resize_ce)
     dev = torch.device("cuda")
     f32, bf16 = torch.float32, torch.bfloat16
     flagship = CE_FLAGSHIP
@@ -455,16 +608,16 @@ def phase_ce(gen):
             for k, v in diffs.items():
                 worst[k] = max(worst[k], float(v))
 
-    # timing at the flagship shape, float32 with pixel weights
+    # timing at the flagship shape, float32 with pixel weights, on the
+    # inputs port_kernel_times timed the forward and dx on
     (b, h, w, c), (hh, ww) = flagship
-    x, lbl, wgt = _ce_case(gen, flagship[0], flagship[1], f32, dev)
-    g = torch.ones((), device=dev)
-    _, lse = fused_resize_ce_forward(x, lbl, wgt)
+    g, x, lbl, wgt, lse = times["ce_dx"]["args"]
     n_fine, n_coarse = b * hh * ww, b * h * w
-    ms = {"fwd": cuda_ms(lambda: fused_resize_ce_forward(x, lbl, wgt)),
-          "dx": cuda_ms(lambda: fused_resize_ce_dx(g, x, lbl, wgt, lse)),
+    ms = {"fwd": times["ce_fwd"]["ms"], "dx": times["ce_dx"]["ms"],
           "dweight": cuda_ms(lambda: fused_resize_ce_dweight(g, x, lbl, lse))}
-    dev_ms = ce_device_times()
+    dev_ms = {k: {"warm": times[f"ce_{k}"]["device_ms"],
+                  "cold": times[f"ce_{k}"]["device_ms_cold_l2"]}
+              for k in ("fwd", "dx")}
     dev_ms["dweight"] = {"warm": device_ms(
         lambda: fused_resize_ce_dweight(g, x, lbl, lse),
         KERNEL_NAMES["fused_resize_ce_dweight"])}
@@ -520,7 +673,7 @@ def phase_ce(gen):
                     "replaces": replaces, "max_abs_err": worst[
                         "loss" if k == "fwd" else k],
                     "ms": ms[k], "device_ms": d["warm"],
-                    "device_ms_cold_l2": d.get("cold"), "kernel_ms": ms[k],
+                    "device_ms_cold_l2": d.get("cold"),
                     "plain_ms": plain[k], "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": None,
                     "library_pair_ms": pair_ms})
@@ -956,26 +1109,32 @@ def phase_train():
     return totals
 
 
-def ce_device_time_only(root):
-    """``--ce-device-time ROOT``: build the CE kernels of the checkout at
-    ROOT (another commit unpacked beside this one, say) and print one JSON
-    line of their device times at the flagship shape, by the same method
-    and on the same inputs as phase_ce, for a before/after on one card."""
+def device_time_only(root):
+    """``--device-time ROOT``: build the kernels of the checkout at ROOT
+    (another commit unpacked beside this one, say) and print one JSON line
+    of every port kernel's device and per-call times at the points the main
+    paths launch it, by the same method and on the same inputs as the full
+    run, for a before/after on one card."""
     sys.path.insert(0, os.path.abspath(root))
     import cmda_tpu_torch
     from cmda_tpu_torch.ops import _build
-    _build.build(("fused_resize_ce",))
-    print(json.dumps({"root": root, "package": cmda_tpu_torch.__file__,
-                      "smi": smi_line(), "ce_device_ms": ce_device_times()}),
-          flush=True)
+    _build.build()
+    times = port_kernel_times(earlier=True)
+    print(json.dumps({
+        "root": root, "package": cmda_tpu_torch.__file__, "smi": smi_line(),
+        "device_ms": {k: t["device_ms"] for k, t in times.items()},
+        "ms": {k: t["ms"] for k, t in times.items()},
+        "device_ms_cold_l2": {k: t["device_ms_cold_l2"] for k, t in
+                              times.items() if "device_ms_cold_l2" in t}}),
+        flush=True)
 
 
 def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
-    if sys.argv[1:2] == ["--ce-device-time"] and len(sys.argv) == 3:
-        ce_device_time_only(sys.argv[2])
+    if sys.argv[1:2] == ["--device-time"] and len(sys.argv) == 3:
+        device_time_only(sys.argv[2])
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}")
@@ -1001,11 +1160,12 @@ def main():
                     or "entry function" in line):
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
+    times = port_kernel_times()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    results = [phase_argmax(gen), phase_isr(gen)]
+    results = [phase_argmax(gen, times), phase_isr(gen, times)]
     phase_main_path(results)
-    results += phase_ce(gen)
+    results += phase_ce(gen, times)
     phase_train_micro()
     launches = phase_train()
     for r in results:

@@ -100,25 +100,28 @@
 
 namespace {
 
+using phase_tile::allow_smem;
 using phase_tile::blend_rows;
 using phase_tile::class_stride;
 using phase_tile::clampi;
 using phase_tile::ColTap;
 using phase_tile::exp2_approx;
 using phase_tile::fill_phase_tab;
+using phase_tile::grid_of;
 using phase_tile::load_f;
 using phase_tile::PhaseTab;
 using phase_tile::PhaseW;
 using phase_tile::phase_weights;
+using phase_tile::pick_tile;
 using phase_tile::row_stride;
 using phase_tile::stage_coarse_tile;
 using phase_tile::store_f;
 using phase_tile::StridedDivmod;
+using phase_tile::Tile;
+using phase_tile::TileOrigin;
 
 constexpr int kThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr size_t kSmemBudget = 64 * 1024;
-constexpr size_t kSmemDefault = 48 * 1024;
 
 // Sum of v over the block, in a fixed order; the result is valid in thread 0.
 __device__ __forceinline__ float block_sum(float v) {
@@ -133,20 +136,6 @@ __device__ __forceinline__ float block_sum(float v) {
   }
   return v;
 }
-
-// (image, first coarse row, first coarse column) of block blockIdx.x over a
-// grid of B x ceil(h/ti) x ceil(w/tj) tiles, columns fastest.
-struct TileOrigin {
-  int b, i0, j0;
-  __device__ __forceinline__ TileOrigin(int h, int w, int ti, int tj) {
-    const int ntj = (w + tj - 1) / tj, nti = (h + ti - 1) / ti;
-    int blk = blockIdx.x;
-    j0 = (blk % ntj) * tj;
-    blk /= ntj;
-    i0 = (blk % nti) * ti;
-    b = blk / nti;
-  }
-};
 
 // ---------------------------------------------------------------- forward
 
@@ -574,26 +563,6 @@ ce_dweight_kernel(const float* __restrict__ g, const T* __restrict__ x,
 
 long long blocks_for(long long n) { return (n + kThreads - 1) / kThreads; }
 
-struct Tile {
-  int ti, tj;
-  size_t smem;
-};
-
-// The largest tile up to ti0 x tj0 coarse pixels (no larger than the image)
-// whose shared memory fits kSmemBudget, halving the columns first; at 1 x 1
-// the kernel takes what it needs (a launch above 227 KB fails and raises).
-template <typename SmemOf>
-Tile pick_tile(SmemOf smem_of, int ti0, int tj0, int h, int w, int C, int fh,
-               int fw) {
-  int ti = max(1, min(ti0, h)), tj = max(1, min(tj0, w));
-  size_t s;
-  while ((s = smem_of(ti, tj, C, fh, fw)) > kSmemBudget && (ti > 1 || tj > 1)) {
-    if (tj > 1 && tj >= ti) tj = (tj + 1) / 2;
-    else ti = (ti + 1) / 2;
-  }
-  return {ti, tj, s};
-}
-
 Tile fwd_tile(int h, int w, int C, int fh, int fw) {
   return pick_tile(fwd_smem, max(1, 8 / fh), max(1, 128 / fw), h, w, C, fh,
                    fw);
@@ -601,17 +570,6 @@ Tile fwd_tile(int h, int w, int C, int fh, int fw) {
 
 Tile dx_tile(int h, int w, int C, int fh, int fw) {
   return pick_tile(dx_smem, max(1, 8 / fh), 32, h, w, C, fh, fw);
-}
-
-long long grid_of(const Tile& t, int B, int h, int w) {
-  return (long long)B * ((h + t.ti - 1) / t.ti) * ((w + t.tj - 1) / t.tj);
-}
-
-template <typename K>
-int allow_smem(K kernel, size_t smem) {
-  if (smem <= kSmemDefault) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <typename T>

@@ -1,7 +1,7 @@
-// Device helpers shared by the kernels that read an integer-factor
-// half-pixel bilinear upsample of NHWC coarse logits through a tile staged in
-// shared memory: the phase weights, their per-block tables, and the staging
-// of a clamped coarse tile.
+// Helpers shared by the kernels that read an integer-factor half-pixel
+// bilinear upsample of NHWC coarse logits through a tile staged in shared
+// memory: the phase weights, their per-block tables, the staging of a
+// clamped coarse tile, and the choice of a tile and its grid at launch.
 //
 // Phase weights: output index o = f*i + p samples coarse i-1 / i / i+1
 // (clamped at the edges) with d = (p + 0.5)/f - 0.5: w_prev = max(-d, 0),
@@ -158,6 +158,58 @@ __device__ __forceinline__ void blend_rows(float* out, const float* a,
     o4[v] = make_float4(wa * p.x + wb * q.x, wa * p.y + wb * q.y,
                         wa * p.z + wb * q.z, wa * p.w + wb * q.w);
   }
+}
+
+// (image, first coarse row, first coarse column) of block blockIdx.x over a
+// grid of B x ceil(h/ti) x ceil(w/tj) tiles, columns fastest.
+struct TileOrigin {
+  int b, i0, j0;
+  __device__ __forceinline__ TileOrigin(int h, int w, int ti, int tj) {
+    const int ntj = (w + tj - 1) / tj, nti = (h + ti - 1) / ti;
+    int blk = blockIdx.x;
+    j0 = (blk % ntj) * tj;
+    blk /= ntj;
+    i0 = (blk % nti) * ti;
+    b = blk / nti;
+  }
+};
+
+// ---------------------------------------------------------------- host
+
+constexpr size_t kSmemBudget = 64 * 1024;
+constexpr size_t kSmemDefault = 48 * 1024;
+
+// ti x tj coarse pixels a block owns, and the dynamic shared memory it takes
+struct Tile {
+  int ti, tj;
+  size_t smem;
+};
+
+// The largest tile up to ti0 x tj0 coarse pixels (no larger than the image)
+// whose shared memory fits kSmemBudget, halving the columns first; at 1 x 1
+// the kernel takes what it needs (a launch above 227 KB fails and raises).
+template <typename SmemOf>
+inline Tile pick_tile(SmemOf smem_of, int ti0, int tj0, int h, int w, int C,
+                      int fh, int fw) {
+  int ti = max(1, min(ti0, h)), tj = max(1, min(tj0, w));
+  size_t s;
+  while ((s = smem_of(ti, tj, C, fh, fw)) > kSmemBudget && (ti > 1 || tj > 1)) {
+    if (tj > 1 && tj >= ti) tj = (tj + 1) / 2;
+    else ti = (ti + 1) / 2;
+  }
+  return {ti, tj, s};
+}
+
+inline long long grid_of(const Tile& t, int B, int h, int w) {
+  return (long long)B * ((h + t.ti - 1) / t.ti) * ((w + t.tj - 1) / t.tj);
+}
+
+// Above 48 KB a kernel must be given the dynamic shared-memory attribute.
+template <typename K>
+inline int allow_smem(K kernel, size_t smem) {
+  if (smem <= kSmemDefault) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace phase_tile

@@ -7,10 +7,6 @@ plain version ``resize_argmax`` for CPU tensors; there is no other
 fallback. ``fused_resize_argmax.launches`` counts kernel launches. The
 kernel needs integer upsample factors; ``resize_argmax`` takes any geometry
 and is what a caller dispatches to for the others.
-
-Still to be ported (they serve only the training loss): ``fused_resize_ce``
-and its backward kernels ``_ce_fwd_kernel``, ``_ce_bwd_kernel`` and
-``_ce_dw_kernel``.
 """
 from __future__ import annotations
 
@@ -69,8 +65,8 @@ def fused_resize_argmax(logits: torch.Tensor, out_size, *,
                          "NHWC")
     b, h, w, c = logits.shape
     hh, ww = int(out_size[0]), int(out_size[1])
-    if b * hh * ww >= 2 ** 31 * 256:
-        raise ValueError("fused_resize_argmax: output too large for one grid")
+    if b * h * w >= 2 ** 31:   # at most one block per coarse pixel
+        raise ValueError("fused_resize_argmax: input too large for one grid")
     label = torch.empty((b, hh, ww), dtype=torch.int32, device=logits.device)
     prob = (torch.empty((b, hh, ww), dtype=torch.float32,
                         device=logits.device) if with_prob else None)

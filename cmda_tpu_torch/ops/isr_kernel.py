@@ -1,9 +1,10 @@
 """Batched ISR: the CUDA kernel ``csrc/batched_isr.cu`` and its wrapper
 (counterpart of cmda_tpu.ops.pallas_kernels.pallas_batched_isr).
 
-``batched_isr`` launches the kernel for CUDA tensors and runs the plain
-PyTorch version (``ops/isr.py``, image by image) for CPU tensors; there is
-no other fallback. ``batched_isr.launches`` counts kernel launches.
+``batched_isr`` launches the kernel (one cooperative launch per call) for
+CUDA tensors and runs the plain PyTorch version (``ops/isr.py``, image by
+image) for CPU tensors; there is no other fallback. ``batched_isr.launches``
+counts kernel launches.
 """
 from __future__ import annotations
 
@@ -63,10 +64,15 @@ def batched_isr(gray: torch.Tensor, direction_idx: torch.Tensor, *,
         raise ValueError("batched_isr: gray must be contiguous")
     direction_idx = direction_idx.contiguous()
     b, h, w = gray.shape
+    if b * h * w >= 2 ** 31:
+        raise ValueError(f"batched_isr: {b * h * w} pixels, the kernel takes "
+                         "fewer than 2^31")
     lo, hi = float(val_range[0]), float(val_range[1])
     span = math.log(hi) - math.log(lo)
     out = torch.empty_like(gray)
-    ext = torch.empty(b * 8, dtype=torch.int32, device=gray.device)
+    # one slot of 8 extrema per chunk (at least 1024 pixels of one image)
+    partials = torch.empty(b * -(-(h * w) // 1024) * 8, dtype=torch.float32,
+                           device=gray.device)
     lib = _build.load("batched_isr")
     fn = getattr(lib, _FN)
     fn.restype = ctypes.c_int
@@ -74,8 +80,9 @@ def batched_isr(gray: torch.Tensor, direction_idx: torch.Tensor, *,
                    + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(gray.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(gray.data_ptr(), direction_idx.data_ptr(), ext.data_ptr(),
-                  out.data_ptr(), b, h, w, lo, (hi - lo) / 255.0,
+        code = fn(gray.data_ptr(), direction_idx.data_ptr(),
+                  partials.data_ptr(), out.data_ptr(), b, h, w, lo,
+                  (hi - lo) / 255.0,
                   span * threshold, span * clip_range, int(shift_pixel),
                   stream)
     _build.check(lib, "cmda_batched_isr_error_string", code, "batched_isr")

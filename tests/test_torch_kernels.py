@@ -34,6 +34,14 @@ ARGMAX_CASES = {
     "nonsquare_3x4": ((2, 6, 10, 5), (12, 40)),
     "factor_1": ((1, 5, 7, 19), (5, 7)),
     "serving_like": ((1, 11, 16, 19), (44, 64)),
+    # the edge geometries the CUDA kernel's tiles meet: both clamps on one
+    # coarse pixel, one of them, a 2x3 factor, one image, a narrow C = 150
+    "h1_w1": ((2, 1, 1, 5), (4, 4)),
+    "h1": ((2, 1, 9, 5), (4, 36)),
+    "w1": ((2, 7, 1, 5), (28, 4)),
+    "fh2_fw3": ((2, 6, 10, 5), (12, 30)),
+    "b1": ((1, 6, 10, 5), (24, 40)),
+    "c150": ((1, 3, 4, 150), (12, 16)),
 }
 
 
@@ -98,12 +106,27 @@ def _gray(seed, b=3, h=24, w=40):
     return np.clip(base, 0, 255).astype(np.float32)
 
 
-@pytest.mark.parametrize("shift", [1, 3])
-@pytest.mark.parametrize("preset", sorted(PRESETS))
-def test_batched_isr_matches_pallas_and_jnp(preset, shift):
+# (preset, shift, [B, H, W]): four images at 24x40 (every direction), and
+# the edge geometries the CUDA kernel meets: one image, W = shift + 1 (one
+# column the shift reaches, the rest keep their value) and one row (the
+# shift may not exceed H, so shift 1 only)
+ISR_CASES = [
+    pytest.param(preset, shift, (4, 24, 40), id=f"{preset}-{shift}")
+    for preset in sorted(PRESETS) for shift in (1, 3)] + [
+    pytest.param(preset, shift, geom, id=f"{preset}-{shift}-{name}")
+    for preset in sorted(PRESETS) for shift in (1, 3)
+    for name, geom in (("b1", (1, 24, 40)),
+                       ("w_shift_plus_1", (4, 24, shift + 1)))] + [
+    pytest.param(preset, 1, (4, 1, 40), id=f"{preset}-1-h1")
+    for preset in sorted(PRESETS)]
+
+
+@pytest.mark.parametrize("preset,shift,geom", ISR_CASES)
+def test_batched_isr_matches_pallas_and_jnp(preset, shift, geom):
     params = PRESETS[preset]
-    gray = _gray(1, b=4)
-    dirs = np.array([0, 1, 2, 3], np.int32)
+    b, h, w = geom
+    gray = _gray(1, b=b, h=h, w=w)
+    dirs = np.arange(b, dtype=np.int32) % 4
     out = batched_isr(torch.from_numpy(gray), torch.from_numpy(dirs),
                       shift_pixel=shift, **params).numpy()
     pal = np.asarray(pallas_batched_isr(jnp.asarray(gray), jnp.asarray(dirs),

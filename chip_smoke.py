@@ -143,6 +143,9 @@ EARLIER_KERNEL_NAMES = {
 }
 # bytes written between calls for a cold-L2 reading (the H100's L2 is 50 MB)
 L2_FLUSH_BYTES = 256 * 2**20
+# traces device_ms takes at most before it fails: a trace that dropped a
+# kernel's events is taken again, and the count taken goes into the results
+DEVICE_MS_TRACES = 3
 
 
 def kernel_spans(prof, names):
@@ -155,15 +158,16 @@ def kernel_spans(prof, names):
                   and any(n in e.name for n in names))
 
 
-def device_ms(fn, names, calls=20, warmup=3, cold=False, tries=3):
-    """Device time of one call of ``fn()`` in ms, the wrapper's host work
-    and launch gaps left out: over ``calls`` calls in a ``torch.profiler``
-    trace, the median duration of each of the call's own kernels
-    (``names``) times its launches per call, summed. Taken per kernel, so
-    an event the trace drops shifts no kernel onto another call; a trace
-    that dropped more than 2 of a kernel's events, or all of them, is taken
-    again, up to ``tries`` traces. ``cold`` writes L2_FLUSH_BYTES between
-    calls, so each call finds its inputs outside L2."""
+def device_ms(fn, names, calls=20, warmup=3, cold=False):
+    """(device time of one call of ``fn()`` in ms, traces taken), the
+    wrapper's host work and launch gaps left out: over ``calls`` calls in a
+    ``torch.profiler`` trace, the median duration of each of the call's own
+    kernels (``names``) times its launches per call, summed. Taken per
+    kernel, so an event the trace drops shifts no kernel onto another call;
+    a trace that dropped more than 2 of a kernel's events, or all of them,
+    is taken again, up to DEVICE_MS_TRACES traces. ``cold`` writes
+    L2_FLUSH_BYTES between calls, so each call finds its inputs outside
+    L2."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     flush = (torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold
@@ -171,7 +175,7 @@ def device_ms(fn, names, calls=20, warmup=3, cold=False, tries=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for attempt in range(tries):
+    for attempt in range(DEVICE_MS_TRACES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 if flush is not None:
@@ -193,11 +197,11 @@ def device_ms(fn, names, calls=20, warmup=3, cold=False, tries=3):
             short = f"no traced kernel named {names}"
         if short is None:
             break
-        print(f"device_ms: trace {attempt + 1} of {tries} holds {short}; "
-              "tracing again", flush=True)
+        print(f"device_ms: trace {attempt + 1} of {DEVICE_MS_TRACES} holds "
+              f"{short}; tracing again", flush=True)
     if short is not None:
-        fail(f"device_ms: {short} in each of {tries} traces")
-    return total / 1e3
+        fail(f"device_ms: {short} in each of {DEVICE_MS_TRACES} traces")
+    return total / 1e3, attempt + 1
 
 
 def wall_ms(fn, warmup=2, reps=5):
@@ -272,6 +276,10 @@ ISR_POINTS = {
     "step": (2, 512, 512),           # the DACS step's mixed ISR
     "b8": (8, 440, 640),             # timed by earlier checkouts
 }
+# the points whose numbers the kernels line gives at its top level: those
+# earlier runs reported there
+ARGMAX_REPORTED_POINT = "serving_b8_prob"
+ISR_REPORTED_POINT = "b8"
 
 
 def _smooth_gray(gen, b, h, w, dev):
@@ -295,7 +303,8 @@ def port_kernel_times(earlier=False):
     ISR_POINTS (the cs2dsec ISR preset). Inputs come from seed 1234, the
     same in every checkout, so two checkouts compare on one card;
     ``earlier`` also matches EARLIER_KERNEL_NAMES. Returns {point:
-    {"device_ms", "ms", "args"}}, ``args`` the inputs timed."""
+    {"device_ms", "traces", "ms", "args"}}, ``traces`` the profiler traces
+    device_ms took and ``args`` the inputs timed."""
     import torch
     from cmda_tpu_torch import config as C
     from cmda_tpu_torch.ops.fused_ce import (fused_resize_ce_dx,
@@ -331,12 +340,15 @@ def port_kernel_times(earlier=False):
         calls[f"isr_{name}"] = (
             lambda gray=gray, dirs=dirs: batched_isr(gray, dirs, **kw),
             names("batched_isr"), (gray, dirs, kw))
-    out = {k: {"device_ms": device_ms(fn, nm), "ms": cuda_ms(fn),
-               "args": args}
-           for k, (fn, nm, args) in calls.items()}
+    out = {}
+    for k, (fn, nm, args) in calls.items():
+        dev_ms, traces = device_ms(fn, nm)
+        out[k] = {"device_ms": dev_ms, "traces": traces, "ms": cuda_ms(fn),
+                  "args": args}
     for k in ("ce_fwd", "ce_dx"):
         fn, nm, _ = calls[k]
-        out[k]["device_ms_cold_l2"] = device_ms(fn, nm, cold=True)
+        (out[k]["device_ms_cold_l2"],
+         out[k]["traces_cold_l2"]) = device_ms(fn, nm, cold=True)
     return out
 
 
@@ -422,7 +434,7 @@ def phase_argmax(gen, times):
         xa = t["args"][0]
         bound_ms, bound_by = argmax_bound(shape, size, with_prob)
         points[name] = {
-            "device_ms": t["device_ms"], "ms": t["ms"],
+            "device_ms": t["device_ms"], "traces": t["traces"], "ms": t["ms"],
             "plain_ms": cuda_ms(lambda: resize_argmax(
                 xa, size, with_prob=with_prob)),
             "bound_ms": bound_ms, "bound_by": bound_by}
@@ -431,12 +443,14 @@ def phase_argmax(gen, times):
               f"with_prob={with_prob}: device {q['device_ms']:.4f} ms, per "
               f"call {q['ms']:.4f} ms, plain {q['plain_ms']:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by})", flush=True)
-    main = points["serving_b8"]
+    # the top-level numbers stay at the point earlier runs reported, so
+    # two runs' lines compare; each main-path point is read in "points"
     return {"name": "fused_resize_argmax", "route": "cuda",
             "source": "cmda_tpu_torch/csrc/fused_resize_argmax.cu",
             "replaces": "cmda_tpu/ops/pallas_ce.py:428",
-            "max_abs_err": worst, **main, "library_ms": None,
-            "point": "serving_b8", "points": points}
+            "max_abs_err": worst, **points[ARGMAX_REPORTED_POINT],
+            "library_ms": None, "point": ARGMAX_REPORTED_POINT,
+            "points": points}
 
 
 def phase_isr(gen, times):
@@ -491,7 +505,7 @@ def phase_isr(gen, times):
         gray, dirs, kw = t["args"]
         bound_ms, bound_by = isr_bound(b, h, w)
         points[name] = {
-            "device_ms": t["device_ms"], "ms": t["ms"],
+            "device_ms": t["device_ms"], "traces": t["traces"], "ms": t["ms"],
             "plain_ms": cuda_ms(lambda: batched_isr_plain(gray, dirs, **kw)),
             "bound_ms": bound_ms, "bound_by": bound_by}
         q = points[name]
@@ -501,8 +515,8 @@ def phase_isr(gen, times):
     return {"name": "batched_isr", "route": "cuda",
             "source": "cmda_tpu_torch/csrc/batched_isr.cu",
             "replaces": "cmda_tpu/ops/pallas_kernels.py:55",
-            "max_abs_err": worst, **points["serving_b1"], "library_ms": None,
-            "point": "serving_b1", "points": points}
+            "max_abs_err": worst, **points[ISR_REPORTED_POINT],
+            "library_ms": None, "point": ISR_REPORTED_POINT, "points": points}
 
 
 def _ce_case(gen, shape, size, dtype, dev, *, weighted=True, ignored=0.05):
@@ -616,11 +630,14 @@ def phase_ce(gen, times):
     ms = {"fwd": times["ce_fwd"]["ms"], "dx": times["ce_dx"]["ms"],
           "dweight": cuda_ms(lambda: fused_resize_ce_dweight(g, x, lbl, lse))}
     dev_ms = {k: {"warm": times[f"ce_{k}"]["device_ms"],
-                  "cold": times[f"ce_{k}"]["device_ms_cold_l2"]}
+                  "cold": times[f"ce_{k}"]["device_ms_cold_l2"],
+                  "traces": times[f"ce_{k}"]["traces"],
+                  "traces_cold": times[f"ce_{k}"]["traces_cold_l2"]}
               for k in ("fwd", "dx")}
-    dev_ms["dweight"] = {"warm": device_ms(
+    warm, traces = device_ms(
         lambda: fused_resize_ce_dweight(g, x, lbl, lse),
-        KERNEL_NAMES["fused_resize_ce_dweight"])}
+        KERNEL_NAMES["fused_resize_ce_dweight"])
+    dev_ms["dweight"] = {"warm": warm, "traces": traces}
 
     def plain_fwd_bwd(wrt_weight):
         xg = x.detach().requires_grad_(not wrt_weight)
@@ -673,7 +690,9 @@ def phase_ce(gen, times):
                     "replaces": replaces, "max_abs_err": worst[
                         "loss" if k == "fwd" else k],
                     "ms": ms[k], "device_ms": d["warm"],
+                    "traces": d["traces"],
                     "device_ms_cold_l2": d.get("cold"),
+                    "traces_cold_l2": d.get("traces_cold"),
                     "plain_ms": plain[k], "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": None,
                     "library_pair_ms": pair_ms})
@@ -1124,6 +1143,7 @@ def device_time_only(root):
         "root": root, "package": cmda_tpu_torch.__file__, "smi": smi_line(),
         "device_ms": {k: t["device_ms"] for k, t in times.items()},
         "ms": {k: t["ms"] for k, t in times.items()},
+        "traces": {k: t["traces"] for k, t in times.items()},
         "device_ms_cold_l2": {k: t["device_ms_cold_l2"] for k, t in
                               times.items() if "device_ms_cold_l2" in t}}),
         flush=True)

@@ -81,49 +81,27 @@ size_t argmax_smem(int ti, int tj, int C, int fh, int fw) {
 }
 
 // argmax (first on ties) and, with kProb, 1 / sum_c exp(z_c - max) of one
-// fine pixel whose logits are z_c = self * r0[c] + other * r1[c]. With
-// kC > 0 (C known when compiled) the loops unroll and z stays in registers;
-// otherwise the prob pass reads the blend again.
-template <int kC, bool kProb>
+// fine pixel whose logits are z_c = self * r0[c] + other * r1[c]; the prob
+// pass reads the blend again.
+template <bool kProb>
 __device__ __forceinline__ int pixel_argmax(const float* r0, const float* r1,
                                             float self, float other, int C,
                                             float* prob) {
   int am = 0;
-  if constexpr (kC > 0) {
-    float z[kC];
-#pragma unroll
-    for (int c = 0; c < kC; ++c) z[c] = self * r0[c] + other * r1[c];
-    float m = z[0];
-#pragma unroll
-    for (int c = 1; c < kC; ++c) {
-      if (z[c] > m) {   // strict: the first maximum wins
-        m = z[c];
-        am = c;
-      }
+  float m = self * r0[0] + other * r1[0];
+  for (int c = 1; c < C; ++c) {
+    const float z = self * r0[c] + other * r1[c];
+    if (z > m) {   // strict: the first maximum wins
+      m = z;
+      am = c;
     }
-    if constexpr (kProb) {
-      const float m2 = m * kLog2e;
-      float s = 0.0f;
-#pragma unroll
-      for (int c = 0; c < kC; ++c) s += exp2_approx(fmaf(z[c], kLog2e, -m2));
-      *prob = 1.0f / s;
-    }
-  } else {
-    float m = self * r0[0] + other * r1[0];
-    for (int c = 1; c < C; ++c) {
-      const float z = self * r0[c] + other * r1[c];
-      if (z > m) {
-        m = z;
-        am = c;
-      }
-    }
-    if constexpr (kProb) {
-      const float m2 = m * kLog2e;
-      float s = 0.0f;
-      for (int c = 0; c < C; ++c)
-        s += exp2_approx(fmaf(self * r0[c] + other * r1[c], kLog2e, -m2));
-      *prob = 1.0f / s;
-    }
+  }
+  if constexpr (kProb) {
+    const float m2 = m * kLog2e;
+    float s = 0.0f;
+    for (int c = 0; c < C; ++c)
+      s += exp2_approx(fmaf(self * r0[c] + other * r1[c], kLog2e, -m2));
+    *prob = 1.0f / s;
   }
   return am;
 }
@@ -261,8 +239,8 @@ argmax_tile_kernel(const T* __restrict__ x, int32_t* __restrict__ label,
       const ColTap ct = coltap[it.r];
       const float* r0 = rs + it.q * rsx + ct.off;
       float p = 0.0f;
-      const int am = pixel_argmax<kC, kProb>(r0, r0 + ct.step, ct.self,
-                                             ct.other, C, &p);
+      const int am = pixel_argmax<kProb>(r0, r0 + ct.step, ct.self,
+                                         ct.other, C, &p);
       const long long pix = ((long long)o.b * H + y0 + it.q) * W + x0 + it.r;
       label[pix] = am;
       if constexpr (kProb) prob[pix] = p;
@@ -277,11 +255,10 @@ int launch_t(const T* x, int32_t* label, float* prob, int B, int h, int w,
              int C, int fh, int fw, cudaStream_t stream) {
   const Tile t = pick_tile(argmax_smem, max(1, 16 / fh), max(1, 128 / fw),
                            h, w, C, fh, fw);
-  // the repository's 19 classes unroll, and at its factor of 4 a thread
-  // takes 4 fine pixels; any other C or factor takes the per-pixel loop
-  auto kernel = C != 19   ? argmax_tile_kernel<T, 0, 0, kProb>
-                : fw == 4 ? argmax_tile_kernel<T, 19, 4, kProb>
-                          : argmax_tile_kernel<T, 19, 0, kProb>;
+  // the main paths' 19 classes at factor 4 unroll, a thread taking 4 fine
+  // pixels; any other C or factor takes the per-pixel loop
+  auto kernel = C == 19 && fw == 4 ? argmax_tile_kernel<T, 19, 4, kProb>
+                                   : argmax_tile_kernel<T, 0, 0, kProb>;
   int err = allow_smem(kernel, t.smem);
   if (err != 0) return err;
   kernel<<<(unsigned)grid_of(t, B, h, w), kThreads, t.smem, stream>>>(

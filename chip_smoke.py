@@ -48,7 +48,18 @@ Phases, any failure exits non-zero:
      counters, the peak memory of the timed steps, and the device-busy
      time of one step under ``torch.profiler`` with each port kernel's
      launches and device time in it;
-  7. one JSON line of per-kernel results, the nvidia-smi line, and last
+  7. the training run: ``cmda_tpu_torch.tools.train.main`` in-process on
+     the same preset, synthetic data, bf16 wire feed, device prefetch 1,
+     4 loader threads, 8 iterations logged each, a checkpoint, an
+     evaluation of 8 val samples and debug grids every 4: the records,
+     PNGs and checkpoints it writes, the launches of every step (as in 6),
+     debug snapshot (argmax 1, ISR 1) and evaluation (argmax 8), the
+     iteration-4 checkpoint loaded in a fresh trainer equal to the state
+     it was written from and stepping as it does, the last checkpoint
+     served by ``init_segmentor``; the steady iteration time, data_time
+     and its host parts, checkpoint bytes and seconds, evaluation seconds
+     and the device-busy share of 3 profiled iterations;
+  8. one JSON line of per-kernel results, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -998,11 +1009,19 @@ def _device_busy(trainer, state, batch):
         for n in names:
             spans = kernel_spans(prof, (n,))
             kernels[n] = [len(spans), sum(e - s for s, e in spans) / 1e3]
+    busy, n_events = _busy_ms(prof)
+    return host_ms, busy, n_events, kernels
+
+
+def _busy_ms(prof):
+    """(device-busy ms = the union of a trace's kernel and copy intervals,
+    or None when it holds no device event; the number of device events)."""
+    import torch
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
-        return host_ms, None, 0, kernels
+        return None, 0
     busy, (lo, hi) = 0.0, spans[0]
     for s, e in spans[1:]:
         if s > hi:
@@ -1011,7 +1030,7 @@ def _device_busy(trainer, state, batch):
         else:
             hi = max(hi, e)
     busy += hi - lo
-    return host_ms, busy / 1e3, len(spans), kernels
+    return busy / 1e3, len(spans)
 
 
 def phase_train():
@@ -1128,6 +1147,425 @@ def phase_train():
     return totals
 
 
+# the training run through its CLI: the flagship at 512x512 batch 2 for 8
+# iterations, logging each, with a checkpoint, an evaluation of the
+# 8-sample val set (batch 1) and debug grids every 4. A debug snapshot runs
+# steps 1-5 of the step (the teacher's pseudo-labels, the mixed ISR); an
+# evaluation one argmax per val sample. The iterations timed as steady are
+# those whose record holds no debug snapshot, checkpoint or evaluation
+# (a record's time runs from the previous record, so iteration 5's holds
+# iteration 4's checkpoint and evaluation); iterations 5-7 are profiled.
+LOOP_ITERS = 8
+LOOP_INTERVAL = 4
+LOOP_VAL = 8
+LOOP_DEBUG_LAUNCHES = {"fused_resize_ce": 0, "fused_resize_ce_dx": 0,
+                       "fused_resize_ce_dweight": 0,
+                       "fused_resize_argmax": 1, "batched_isr": 1}
+LOOP_EVAL_LAUNCHES = {"fused_resize_ce": 0, "fused_resize_ce_dx": 0,
+                      "fused_resize_ce_dweight": 0,
+                      "fused_resize_argmax": LOOP_VAL, "batched_isr": 0}
+LOOP_STEADY = (2, 3, 6, 7)
+LOOP_PROFILED = (5, 6, 7)
+LOOP_LOG_RTOL = 1e-6
+
+
+def _state_tensors(state):
+    """Every tensor of a train state by name (student and teacher
+    parameters and buffers, AdamW's state) and its step."""
+    import torch
+    out = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"ema/{k}": v
+                for k, v in state.ema_model.state_dict().items()})
+    names = {p: k for k, p in state.model.named_parameters()}
+    for p, st in state.optimizer.state.items():
+        out.update({f"opt/{names[p]}/{k}": v for k, v in st.items()})
+    out["step"] = torch.tensor(state.step)
+    return out
+
+
+def _feed_ms(cfg):
+    """The host parts of the loop's ``data_time`` outside the loop, on
+    flagship batches, in ms: ``encode_wire`` of one batch again and again
+    and of 5 fresh batches, with no loader thread running; ``encode_wire``
+    of a batch just taken from a ``PrefetchLoader`` of 4 workers with full
+    queues (its worker starts refilling, as in the loop), 5 times 0.5 s
+    apart, with torch's intra-op threads and with one; the device feed's
+    ``next()`` (pinned fill, copy issue); and one batch of the loader's
+    work on one thread. Medians."""
+    import random
+    import torch
+    from cmda_tpu_torch.data.loader import (PrefetchLoader, collate,
+                                            device_prefetch)
+    from cmda_tpu_torch.data.uda import UDAPairDataset
+    from cmda_tpu_torch.data.synthetic import SyntheticSource, SyntheticTarget
+    from cmda_tpu_torch.data.wire import encode_wire
+
+    def ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    (w, h), b = cfg.data.crop_size, cfg.data.batch_size
+    pairs = UDAPairDataset(SyntheticSource(crop_size=(w, h)),
+                           SyntheticTarget(crop_size=(w, h)), seed=cfg.seed)
+    rng = random.Random(0)
+
+    def one_batch():
+        return collate([pairs.load(rng.randrange(len(pairs)), rng=rng)
+                        for _ in range(b)])
+    loads = [ms(one_batch) for _ in range(5)]
+    fresh = [ms(lambda: encode_wire(batch))[0] for _, batch in loads]
+    batch = loads[0][1]
+    again = [ms(lambda: encode_wire(batch))[0] for _ in range(5)]
+
+    def under_loader():
+        loader = PrefetchLoader(pairs, b, num_workers=4, seed=cfg.seed)
+        out = []
+        try:
+            deadline = time.perf_counter() + 60
+            while (not all(q.full() for q in loader.queues)
+                   and time.perf_counter() < deadline):
+                time.sleep(0.1)
+            for _ in range(5):
+                time.sleep(0.5)
+                taken = next(loader)
+                out.append(ms(lambda: encode_wire(taken))[0])
+        finally:
+            loader.close()
+        return statistics.median(out)
+    under = under_loader()
+    # the same with one intra-op thread: whether the workers contend with
+    # the GIL or with the intra-op thread pool for the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        under_1 = under_loader()
+        fresh_1 = statistics.median(ms(lambda: encode_wire(batch))[0]
+                                    for _, batch in loads)
+    finally:
+        torch.set_num_threads(threads)
+    wire = encode_wire(batch)
+    feed = device_prefetch(iter([wire] * 8), "cuda", cfg.data.device_prefetch)
+    place = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        place.append(ms(lambda: next(feed))[0])
+    torch.cuda.synchronize()
+
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+    return {"loader_batch_ms": statistics.median(t for t, _ in loads),
+            "feed_encode_ms": statistics.median(again),
+            "feed_encode_fresh_ms": statistics.median(fresh),
+            "feed_encode_under_loader_ms": under,
+            "feed_encode_fresh_1_thread_ms": fresh_1,
+            "feed_encode_under_loader_1_thread_ms": under_1,
+            "intra_op_threads": threads,
+            "feed_next_ms": statistics.median(place[2:]),
+            "feed_wire_bytes": nbytes(wire)}
+
+
+def phase_loop():
+    """The DACS training run of the flagship through
+    ``cmda_tpu_torch.tools.train.main`` (loader threads, bf16 wire feed,
+    device prefetch, TrainLoop, checkpoints, periodic evaluation, debug
+    grids), with its launch counts per step, debug snapshot and
+    evaluation; then a checkpoint loaded in a fresh trainer against the
+    state it was written from, and the last checkpoint served."""
+    import copy
+    import gc
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.apis import Segmentor, init_segmentor
+    from cmda_tpu_torch.data.synthetic import (SyntheticSource,
+                                               SyntheticTarget, uda_batch)
+    from cmda_tpu_torch.tools import train as cli
+    from cmda_tpu_torch.train import loop as loop_mod
+    from cmda_tpu_torch.uda.dacs import DACSTrainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = _kernel_counters()
+    cfg = C.replace(C.cs2dsec_image_events_b5(), log_interval=1,
+                    checkpoint_interval=LOOP_INTERVAL,
+                    eval_interval=LOOP_INTERVAL,
+                    debug_img_interval=LOOP_INTERVAL)
+    if not (cfg.data.wire_bf16 and cfg.data.device_prefetch == 1
+            and cfg.data.workers == 4 and cfg.checkpoint_max_keep == 1):
+        fail(f"loop: the preset's data settings changed: {cfg.data}")
+    launches = {"step": [], "debug": [], "eval": []}
+    timings = {"checkpoint_write_s": [], "eval_s": []}
+    saved, prof = {}, {}
+
+    def counted(kind, fn):
+        def wrapper(*args, **kwargs):
+            before = {k: f.launches for k, f in counters.items()}
+            out = fn(*args, **kwargs)
+            launches[kind].append({k: f.launches - before[k]
+                                   for k, f in counters.items()})
+            return out
+        return wrapper
+
+    real_step = DACSTrainer.train_step
+    step_fn = counted("step", real_step)
+
+    def train_step(trainer, state, batch, draws=None):
+        if state.step == LOOP_PROFILED[0] - 1:
+            torch.cuda.synchronize()
+            prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+            prof["p"].start()
+            prof["t0"] = time.perf_counter()
+        return step_fn(trainer, state, batch, draws)
+
+    real_log = loop_mod.TrainLoop.log
+
+    def log(loop, record):
+        real_log(loop, record)
+        if record.get("iter") == LOOP_PROFILED[-1] and "loss" in record:
+            torch.cuda.synchronize()
+            prof["host_ms"] = (time.perf_counter() - prof["t0"]) * 1e3
+            prof["p"].stop()
+
+    real_save = loop_mod.save_checkpoint
+
+    def save_checkpoint(state, path, meta=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_save(state, path, meta)
+        timings["checkpoint_write_s"].append(time.perf_counter() - t0)
+        timings["checkpoint_bytes"] = os.path.getsize(path)
+        if meta["iter"] == LOOP_INTERVAL:
+            # kept past the pruning, with the state it was written from
+            saved["path"] = os.path.join(tmp, "kept.pth")
+            os.link(path, saved["path"])
+            saved["state"] = copy.deepcopy(state)
+
+    real_eval = loop_mod.evaluate_fusion
+    split = {"queue": [], "encode": []}
+
+    def timed(kind, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            split[kind].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    def evaluate_fusion(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = counted("eval", real_eval)(*args, **kwargs)
+        timings["eval_s"].append(time.perf_counter() - t0)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = os.path.join(tmp, "work")
+        argv = ["--config", "cs2dsec", "--synthetic", "--work-dir", work,
+                "--max-iters", str(LOOP_ITERS), "--num-workers", "4",
+                "--seed", "0"]
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.dict(C.PRESETS, {"cs2dsec": lambda: cfg}), \
+                mock.patch.object(DACSTrainer, "train_step", train_step), \
+                mock.patch.object(DACSTrainer, "debug_tensors", counted(
+                    "debug", DACSTrainer.debug_tensors)), \
+                mock.patch.object(loop_mod.TrainLoop, "log", log), \
+                mock.patch.object(loop_mod, "save_checkpoint",
+                                  save_checkpoint), \
+                mock.patch.object(loop_mod, "evaluate_fusion",
+                                  evaluate_fusion), \
+                mock.patch.object(loop_mod.PrefetchLoader, "__next__", timed(
+                    "queue", loop_mod.PrefetchLoader.__next__)), \
+                mock.patch.object(loop_mod, "encode_wire", timed(
+                    "encode", loop_mod.encode_wire)):
+            loop = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        totals = {k: f.launches for k, f in counters.items()}
+        state = loop.state
+
+        # --- what the run wrote ------------------------------------------
+        with open(loop.log_path) as f:
+            records = [json.loads(line) for line in f]
+        steps = [r for r in records if "loss" in r]
+        if [r["iter"] for r in steps] != list(range(1, LOOP_ITERS + 1)):
+            fail(f"loop: step records {[r['iter'] for r in steps]}")
+        bad = [(r["iter"], k) for r in steps for k, v in r.items()
+               if not math.isfinite(v)]
+        if bad:
+            fail(f"loop: log values not finite: {bad}")
+        files = sorted(os.listdir(work))
+        ckpts = [f for f in files if f.startswith("iter_")]
+        if ckpts != [f"iter_{LOOP_ITERS}.pth"]:
+            fail(f"loop: checkpoints {ckpts}, expected only "
+                 f"iter_{LOOP_ITERS}.pth (iter_{LOOP_INTERVAL}.pth pruned)")
+        evals = [f for f in files if f.startswith("test_results_")]
+        scores = {r["iter"]: r["eval"]["mIoU"] for r in records
+                  if "eval" in r}
+        want = sorted(f"test_results_{it}_{m * 100:.2f}"
+                      for it, m in scores.items())
+        if sorted(scores) != [LOOP_INTERVAL, LOOP_ITERS] or sorted(
+                evals) != want:
+            fail(f"loop: evaluation dirs {evals}, expected {want}")
+        for e in evals:
+            panels = sorted(os.listdir(os.path.join(work, e)))
+            if panels != [f"{i:06d}.png" for i in range(LOOP_VAL)]:
+                fail(f"loop: {e} holds {panels}")
+        grids = sorted(os.listdir(os.path.join(work, "class_mix_debug")))
+        if grids != [f"{it:06d}_{i}.png" for it in (LOOP_INTERVAL, LOOP_ITERS)
+                     for i in range(2)]:
+            fail(f"loop: class_mix_debug holds {grids}")
+        if "code.tar.gz" not in files:
+            fail("loop: no code.tar.gz")
+
+        # --- launches ----------------------------------------------------
+        n_evals = LOOP_ITERS // LOOP_INTERVAL
+        if (launches["step"] != [TRAIN_LAUNCHES_PER_STEP] * LOOP_ITERS
+                or launches["debug"] != [LOOP_DEBUG_LAUNCHES] * n_evals
+                or launches["eval"] != [LOOP_EVAL_LAUNCHES] * n_evals):
+            fail(f"loop: launches per step {launches['step']}, per debug "
+                 f"snapshot {launches['debug']}, per evaluation "
+                 f"{launches['eval']}")
+        expect = {k: LOOP_ITERS * TRAIN_LAUNCHES_PER_STEP[k]
+                  + n_evals * (LOOP_DEBUG_LAUNCHES[k]
+                               + LOOP_EVAL_LAUNCHES[k]) for k in totals}
+        if totals != expect:
+            fail(f"loop: launches {totals}, expected {expect}")
+        print(f"loop: {LOOP_ITERS} iterations through tools.train.main in "
+              f"{run_s:.1f} s; launches {totals} (per step "
+              f"{TRAIN_LAUNCHES_PER_STEP}, per debug snapshot argmax 1 ISR "
+              f"1, per evaluation argmax {LOOP_VAL}); final loss "
+              f"{steps[-1]['loss']:.5f}; mIoU {scores}", flush=True)
+
+        # --- a checkpoint loads back and steps as the state it holds -----
+        # resume: init_state from the config's seed (which also makes the
+        # CycleGAN, not part of a checkpoint), then the load
+        trainer = DACSTrainer(cfg, device="cuda")
+        fresh = trainer.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = loop_mod.load_checkpoint(fresh, saved["path"])
+        torch.cuda.synchronize()
+        timings["checkpoint_read_s"] = time.perf_counter() - t0
+        ref, got = _state_tensors(saved["state"]), _state_tensors(loaded)
+        diff = sorted(set(ref) ^ set(got)) + [
+            k for k in ref if k in got and not (
+                ref[k].dtype == got[k].dtype
+                and ref[k].device == got[k].device
+                and torch.equal(ref[k], got[k]))]
+        if diff or got["step"] != LOOP_INTERVAL:
+            fail(f"loop: iter_{LOOP_INTERVAL}.pth loads back different "
+                 f"tensors: {diff[:8]}")
+        (w, h) = cfg.data.crop_size
+        batch = uda_batch(SyntheticSource(crop_size=(w, h)),
+                          SyntheticTarget(crop_size=(w, h)), [0, 1])
+        draws = trainer.new_draws(loaded, cfg.data.batch_size)
+
+        def step_logs(state):
+            return {k: float(v) for k, v in
+                    trainer.train_step(state, batch, draws)[1].items()}
+
+        def worst(a, b):
+            return max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12) for k in a)
+        # cuDNN's default convolution algorithms (the CycleGAN's transposed
+        # convolutions among them) need not give the same bits on two
+        # calls: first the two steps as the run takes them, on copies
+        # (reported), then with deterministic algorithms (held)
+        usual = [step_logs(copy.deepcopy(s)) for s in (saved["state"], loaded)]
+        torch.backends.cudnn.deterministic = True
+        try:
+            a, b = step_logs(saved["state"]), step_logs(loaded)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        timings["resume_step_rel_diff_usual"] = worst(*usual)
+        timings["resume_step_rel_diff_deterministic"] = worst(a, b)
+        if worst(a, b) > LOOP_LOG_RTOL:
+            fail(f"loop: a step from the loaded state differs by "
+                 f"{worst(a, b):.3g} relative: {a} vs {b}")
+        print(f"loop: iter_{LOOP_INTERVAL}.pth in a fresh trainer equals the "
+              f"state it was written from in all {len(ref)} tensors and the "
+              f"step; one step from each on one batch and draws, with "
+              f"deterministic cuDNN algorithms: logs "
+              + ("bitwise equal" if a == b else
+                 f"within {worst(a, b):.3g} relative") + ", tolerance "
+              f"{LOOP_LOG_RTOL:g}; with the default ones: "
+              + ("bitwise equal" if usual[0] == usual[1] else
+                 f"within {worst(*usual):.3g} relative ("
+                 + ", ".join(f"{k} {usual[0][k]!r} vs {usual[1][k]!r}"
+                             for k in usual[0] if usual[0][k] != usual[1][k])
+                 + ")"), flush=True)
+        del saved["state"], loaded, fresh, trainer
+
+        # --- the last checkpoint serves --------------------------------
+        seg = init_segmentor(cfg, os.path.join(work, ckpts[0]),
+                             device="cuda")
+        sample = SyntheticTarget(crop_size=(w, h), length=LOOP_VAL,
+                                 test_mode=True)[0]
+        ours = seg.predict(sample["image"], sample["events"])
+        student = Segmentor(cfg, state.model).predict(sample["image"],
+                                                      sample["events"])
+        if not torch.equal(ours, student):
+            fail("loop: init_segmentor(iter_8.pth) predicts other labels "
+                 "than the student")
+        del seg
+
+    feed = _feed_ms(cfg)
+    iter_ms = {r["iter"]: r["time"] * 1e3 for r in steps}
+    busy_ms, n_events = _busy_ms(prof["p"])
+    timings.update({
+        "loop_iter_ms": iter_ms,
+        "loop_iter_ms_median_steady": statistics.median(
+            iter_ms[i] for i in LOOP_STEADY),
+        "loop_iter_ms_median_unprofiled": statistics.median(
+            iter_ms[i] for i in LOOP_STEADY if i not in LOOP_PROFILED),
+        "loop_data_ms": {r["iter"]: r["data_time"] * 1e3 for r in steps},
+        "loop_data_ms_median": statistics.median(
+            r["data_time"] * 1e3 for r in steps[1:]),
+        "loop_profiled_ms": prof["host_ms"],
+        "loop_profiled_busy_ms": busy_ms,
+        "loop_profiled_events": n_events,
+        # the feed pulls batch i + 1 while handing out batch i
+        "loop_queue_ms": split["queue"][2:LOOP_ITERS + 1],
+        "loop_encode_ms": split["encode"][2:LOOP_ITERS + 1],
+        "loop_run_s": run_s, **feed})
+    print("loop: iteration ms " + ", ".join(
+        f"{i} {t:.2f}" for i, t in iter_ms.items())
+        + f"; steady median (iterations {LOOP_STEADY}) "
+        f"{timings['loop_iter_ms_median_steady']:.2f} ms, of the unprofiled "
+        f"ones {timings['loop_iter_ms_median_unprofiled']:.2f} ms", flush=True)
+    print("loop: data_time ms " + ", ".join(
+        f"{i} {t:.3f}" for i, t in timings["loop_data_ms"].items())
+        + f"; median after the first {timings['loop_data_ms_median']:.3f}; "
+        f"of it, in the loop (iterations 2-8, median): the loader queue "
+        f"{statistics.median(timings['loop_queue_ms']):.3f} ms, encode_wire "
+        f"{statistics.median(timings['loop_encode_ms']):.3f} ms; outside "
+        f"the loop: encode_wire of one batch again "
+        f"{feed['feed_encode_ms']:.3f} ms, of fresh batches "
+        f"{feed['feed_encode_fresh_ms']:.3f} ms, of a batch just taken from "
+        f"a running loader {feed['feed_encode_under_loader_ms']:.3f} ms "
+        f"({feed['intra_op_threads']} intra-op threads; with 1: fresh "
+        f"{feed['feed_encode_fresh_1_thread_ms']:.3f} ms, from the loader "
+        f"{feed['feed_encode_under_loader_1_thread_ms']:.3f} ms); the "
+        f"feed's next() (pinned fill, copy issued) "
+        f"{feed['feed_next_ms']:.3f} ms; one loader batch on one thread "
+        f"{feed['loader_batch_ms']:.1f} ms", flush=True)
+    print(f"loop: checkpoint {timings['checkpoint_bytes']} bytes, written in "
+          + ", ".join(f"{t:.2f}" for t in timings["checkpoint_write_s"])
+          + f" s, read in {timings['checkpoint_read_s']:.2f} s; evaluation "
+          f"of {LOOP_VAL} samples " + ", ".join(
+              f"{t:.2f}" for t in timings["eval_s"]) + " s", flush=True)
+    print(f"loop: profiled iterations {LOOP_PROFILED}: " + (
+        f"{prof['host_ms']:.2f} ms host, device busy {busy_ms:.2f} ms "
+        f"({100 * busy_ms / prof['host_ms']:.1f}%) over {n_events} device "
+        "events" if busy_ms is not None else
+        f"{prof['host_ms']:.2f} ms host, device busy not measured (the trace "
+        "holds no device event)"), flush=True)
+    print("loop timings " + json.dumps(timings), flush=True)
+    return totals
+
+
 def device_time_only(root):
     """``--device-time ROOT``: build the kernels of the checkout at ROOT
     (another commit unpacked beside this one, say) and print one JSON line
@@ -1188,12 +1626,15 @@ def main():
     results += phase_ce(gen, times)
     phase_train_micro()
     launches = phase_train()
+    loop_launches = phase_loop()
     for r in results:
         # the serving kernels keep their serving-path count under
-        # "launches"; the training path's count goes beside it
+        # "launches"; the training path's count goes beside it, and the
+        # training run's (8 iterations, 2 debug snapshots, 2 evaluations)
         key = ("launches" if r["name"].startswith("fused_resize_ce")
                else "launches_train")
         r[key] = launches[r["name"]]
+        r["launches_loop"] = loop_launches[r["name"]]
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi, flush=True)

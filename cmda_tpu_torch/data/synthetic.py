@@ -2,18 +2,21 @@
 copies of cmda_tpu.data.synthetic.SyntheticSource and SyntheticTarget, the
 same draws for the same seed, so both packages see identical samples).
 
-``collate`` stacks samples into a batch; ``uda_batch`` builds the trainer's
-``{'source', 'target'}`` batch."""
+``uda_batch`` builds the trainer's ``{'source', 'target'}`` batch with
+``data.loader.collate`` (re-exported here)."""
 from __future__ import annotations
 
 import numpy as np
+
+from .loader import collate
 
 
 class SyntheticSource:
     """CityscapesIC stand-in: image / img_time_res / img_self_res / label
     (5% of the labels set to the ignore id 255).
 
-    ``crop_size`` is (w, h), as in the JAX package."""
+    ``crop_size`` is (w, h), as in the JAX package; ``files`` names each
+    sample as a Cityscapes image file, for Rare Class Sampling."""
 
     def __init__(self, *, crop_size=(512, 512), num_classes: int = 19,
                  length: int = 64, seed: int = 0, with_time_res: bool = True):
@@ -22,6 +25,8 @@ class SyntheticSource:
         self.length = length
         self.seed = seed
         self.with_time_res = with_time_res
+        self.files = [f"synthetic_{i:06d}_leftImg8bit.png"
+                      for i in range(length)]
 
     def __len__(self):
         return self.length
@@ -85,11 +90,6 @@ class SyntheticTarget:
 
     def __getitem__(self, idx):
         return self.load(idx)
-
-
-def collate(samples: list) -> dict:
-    """List of dicts of numpy arrays -> dict of batch-stacked arrays."""
-    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
 def uda_batch(source, target, indices) -> dict:

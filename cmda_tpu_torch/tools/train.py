@@ -1,0 +1,161 @@
+"""Train CLI of the port: the DACS run of a preset on synthetic data, on one
+device (mirrors tools/train.py of the JAX package).
+
+    python -m cmda_tpu_torch.tools.train --config tiny --synthetic \\
+        --device cpu --max-iters 2
+    python -m cmda_tpu_torch.tools.train --config cs2dsec --synthetic \\
+        --work-dir work_dirs/b5 --pretrained-backbone mit_b5.pth \\
+        --cyclegan cityscapes_ICD_to_dsec_EN.pth
+
+Prints ``{"done": true, "step": N, "work_dir": ...}`` at the end;
+``main(argv)`` returns the ``TrainLoop`` (its final state in ``.state``).
+A flag of the JAX CLI whose code is not ported raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+from .. import config as C
+from ..data.synthetic import SyntheticSource, SyntheticTarget
+from ..data.uda import UDAPairDataset
+from ..train.loop import TrainLoop, load_checkpoint
+from ..utils.weights import (load_pretrained_backbone, load_torch_file,
+                             strip_prefix)
+
+# the JAX CLI's flags that lead to code the port does not have, by ROADMAP
+# queue A item: 2 training options, 3 config overrides and the ablation
+# surface, 4 the real corpora, 5 other UDA variants, 7 parallelism
+_UNPORTED = {
+    **dict.fromkeys(("--source-root", "--target-root", "--target-txt",
+                     "--val-txt", "--rcs-json-dir"), 4),
+    **dict.fromkeys(("--dtype", "--teacher-bf16"), 2),
+    **dict.fromkeys(("--multi-host", "--coordinator", "--data-parallel",
+                     "--shard-opt-state", "--tensor-parallel"), 7),
+    "--imnet": 5,
+    **dict.fromkeys((
+        "--set", "--fused-resize", "--pallas-ce", "--no-pallas-ce",
+        "--backbone", "--fusion", "--fusion_isr", "--train_size",
+        "--day_events_generate", "--events_clip_range",
+        "--events_bins_5_avg_1", "--image_change_range", "--feature_dist",
+        "--no_plcrop", "--cs_isr_noise", "--cs_cow_mask",
+        "--high_resolution_isr", "--random_flare", "--sky_mask",
+        "--deflare_aug", "--isr_edge", "--isr_edge_class_weight",
+        "--isr_mix_aug", "--img_self_res_reg", "--cs_isr_data_type",
+        "--dz_isr_data_type", "--dz_auto_threshold", "--shift_3_channel",
+        "--share_decoder", "--half_share_decoder", "--no_share_decoder",
+        "--mixed_image_to_mixed_isr", "--isr_noise_dacs_type",
+        "--source_isr_parms", "--target_isr_parms", "--dacs_isr_parms",
+        "--without_events", "--without_isd", "--isr_no_fusion",
+        "--fuse_both_ice_and_e", "--random_choice_thres", "--isd_shift_type",
+        "--loss_weight_image", "--loss_weight_events", "--loss_weight_fusion",
+        "--loss_weight_img_self_res", "--lambda_feature_consistency",
+        "--test_mode"), 3),
+}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="cmda_tpu_torch trainer",
+                                allow_abbrev=False)
+    p.add_argument("--config", default="cs2dsec", choices=["cs2dsec", "tiny"])
+    p.add_argument("--work-dir", default=None)
+    p.add_argument("--synthetic", action="store_true",
+                   help="synthetic data (the only data ported so far)")
+    p.add_argument("--max-iters", type=int, default=None,
+                   help="sets optim.max_iters, the schedule's horizon")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--resume-from", default=None,
+                   help="an iter_<n>.pth of this CLI")
+    p.add_argument("--num-workers", type=int, default=None)
+    p.add_argument("--pretrained-backbone", default=None,
+                   help="NVlabs mit_bX.pth loaded into both backbones "
+                        "(reference mix_transformer.py:339-357)")
+    p.add_argument("--cyclegan", default=None,
+                   help="frozen day-events generator state_dict "
+                        "(reference dacs.py:96-103)")
+    p.add_argument("--device", default="cuda")
+    args, extra = p.parse_known_args(argv)
+    for token in extra:
+        flag = token.split("=", 1)[0]
+        if flag in _UNPORTED:
+            raise NotImplementedError(f"{flag} is not ported (ROADMAP queue "
+                                      f"A item {_UNPORTED[flag]})")
+    if extra:
+        p.error(f"unrecognized arguments: {' '.join(extra)}")
+    if not args.synthetic:
+        raise NotImplementedError("training on the real corpora is not "
+                                  "ported, pass --synthetic (ROADMAP queue "
+                                  "A item 4)")
+    return args
+
+
+def build_config(args) -> C.RunConfig:
+    cfg = C.PRESETS[args.config]()
+    if args.seed is not None:
+        cfg = C.replace(cfg, seed=args.seed)
+    if args.batch_size:
+        cfg = C.replace(cfg, data=C.replace(cfg.data,
+                                            batch_size=args.batch_size))
+    if args.max_iters:
+        cfg = C.replace(cfg, optim=C.replace(cfg.optim,
+                                             max_iters=args.max_iters))
+    return cfg
+
+
+def build_datasets(cfg: C.RunConfig):
+    """The synthetic UDA pair dataset and an 8-sample test-mode val set."""
+    with_events = cfg.model.train_type.startswith("cs2dsec")
+    src = SyntheticSource(crop_size=cfg.data.crop_size,
+                          with_time_res=with_events)
+    tgt = SyntheticTarget(crop_size=cfg.data.crop_size,
+                          with_events=with_events)
+    val = SyntheticTarget(crop_size=cfg.data.crop_size, length=8,
+                          with_events=with_events, test_mode=True)
+    return UDAPairDataset(src, tgt, seed=cfg.seed), val
+
+
+def init_state(trainer, cfg: C.RunConfig, args):
+    """The initial train state: the CycleGAN from ``--cyclegan`` (a
+    DataParallel ``module.`` prefix stripped), the MiT weights of
+    ``--pretrained-backbone`` in both encoders and the teacher a copy of
+    the student; random from the config's seed otherwise."""
+    cyclegan = None
+    if args.cyclegan:
+        if args.cyclegan.endswith(".npz"):
+            raise NotImplementedError("the JAX CycleGAN trainer's .npz "
+                                      "generators are not ported (ROADMAP "
+                                      "queue A item 5)")
+        cyclegan = strip_prefix(load_torch_file(args.cyclegan),
+                                prefixes=("module.",))
+    state = trainer.init_state(cfg.seed, cyclegan_state_dict=cyclegan)
+    if args.pretrained_backbone:
+        sd = load_torch_file(args.pretrained_backbone)
+        for backbone in (state.model.backbone_image,
+                         state.model.backbone_events):
+            load_pretrained_backbone(backbone, sd)
+        state.ema_model.load_state_dict(state.model.state_dict())
+    return state
+
+
+def main(argv=None) -> TrainLoop:
+    args = parse_args(argv)
+    cfg = build_config(args)
+    dataset, val = build_datasets(cfg)
+    loop = TrainLoop(cfg, dataset=dataset, val_dataset=val,
+                     work_dir=args.work_dir, num_workers=args.num_workers,
+                     device=args.device)
+    state = init_state(loop.trainer, cfg, args)
+    if args.resume_from:
+        # the checkpoint holds no CycleGAN: it comes from --cyclegan or the
+        # seed, as at the start of the run
+        state = load_checkpoint(state, args.resume_from)
+    final = loop.run(max_iters=args.max_iters, state=state)
+    print(json.dumps({"done": True, "step": final.step,
+                      "work_dir": loop.work_dir}), flush=True)
+    return loop
+
+
+if __name__ == "__main__":
+    main()

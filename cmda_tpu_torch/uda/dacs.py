@@ -28,6 +28,12 @@ Randomness is injectable: ``train_step(state, batch, draws)`` takes a
 step. ``jax.random`` streams cannot be reproduced in torch, so the tests
 hand both packages the same numbers this way.
 
+The batch may come in the compact wire format (``data/wire.py``): the step
+decodes it on the device first, as the JAX step does inside its jit.
+``debug_tensors`` is the snapshot of steps 1-5 for the ``class_mix_debug``
+grids, with the draws of the step about to run; it applies the EMA to a
+copy of the teacher, so it leaves the state as it was.
+
 Only the flagship's flags are ported; any other train type or option
 raises ``NotImplementedError`` naming it.
 """
@@ -41,6 +47,8 @@ import torch
 
 from ..apis import build_model, resolve_device
 from ..config import RunConfig
+from ..data.loader import host_tensor
+from ..data.wire import decode_wire
 from ..models.cyclegan import (ResnetGenerator, generator_from_params,
                                init_generator)
 from ..models.segmentor import FusionEncoderDecoder, ForwardDraws
@@ -106,10 +114,11 @@ class DACSTrainState:
 
 
 def _to_device(tree, device):
+    """Numpy arrays or tensors -> contiguous tensors on ``device`` (no copy
+    for a contiguous tensor already there)."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
-    return torch.as_tensor(np.asarray(tree) if not isinstance(
-        tree, torch.Tensor) else tree).to(device)
+    return host_tensor(tree).to(device)
 
 
 class DACSTrainer:
@@ -231,13 +240,14 @@ class DACSTrainer:
         return float(rc)
 
     @torch.no_grad()
-    def _ema_update(self, state):
-        """ema <- alpha * ema + (1 - alpha) * params, alpha in float32."""
-        t = torch.tensor(float(state.step), dtype=torch.float32)
+    def _ema_update(self, teacher, student, step: int):
+        """teacher <- alpha * teacher + (1 - alpha) * student (parameters,
+        in place), alpha = min(1 - 1/(step+1), uda.alpha) in float32."""
+        t = torch.tensor(float(step), dtype=torch.float32)
         alpha_t = torch.clamp(1.0 - 1.0 / (t + 1.0), max=self.cfg.uda.alpha)
         alpha, beta = float(alpha_t), float(1.0 - alpha_t)
-        ema = list(state.ema_model.parameters())
-        params = [p.detach() for p in state.model.parameters()]
+        ema = list(teacher.parameters())
+        params = [p.detach() for p in student.parameters()]
         torch._foreach_mul_(ema, alpha)
         torch._foreach_add_(ema, params, alpha=beta)
 
@@ -262,10 +272,11 @@ class DACSTrainer:
                     w_fusion=u.loss_weight_fusion, w_isr=u.loss_weight_isr)
 
     @torch.no_grad()
-    def _prepare(self, state: DACSTrainState, batch: dict,
-                 draws: StepDraws) -> dict:
-        """Steps 1-5: the EMA update (in place) and every tensor the two
-        losses need."""
+    def _prepare(self, state: DACSTrainState, batch: dict, draws: StepDraws,
+                 ema_model: FusionEncoderDecoder) -> dict:
+        """Steps 1-5: the EMA update of ``ema_model`` (in place; the step
+        passes ``state.ema_model``) and every tensor the two losses and the
+        debug grids need."""
         cfg, u = self.cfg, self.cfg.uda
         src, tgt = batch["source"], batch["target"]
         day_image, day_label = src["image"], src["label"]
@@ -281,11 +292,11 @@ class DACSTrainer:
                                        device=self.device))
         use_events = draws.coin > self._choice_thres(state.step)
 
-        self._ema_update(state)
+        self._ema_update(ema_model, state.model, state.step)
         self._mark("ema")
 
         ema_second = torch.where(use_events, night_events, night_isr)
-        teacher = state.ema_model.forward_logits(
+        teacher = ema_model.forward_logits(
             night_image, ema_second, None, "default", resize_to_input=False,
             streams=("fusion",), train=False, bn_train=True, bn_update=False)
         pseudo_label, pseudo_weight = pseudo_label_and_weight_coarse(
@@ -309,11 +320,35 @@ class DACSTrainer:
         self._mark("mix")
         return dict(day_image=day_image, day_label=day_label,
                     day_isr=src["img_self_res"], day_events=day_events,
-                    use_events=use_events, pseudo_label=pseudo_label,
-                    pseudo_weight=pseudo_weight, masks=masks,
+                    night_image=night_image, night_isr=night_isr,
+                    night_events=night_events, use_events=use_events,
+                    pseudo_label=pseudo_label, pseudo_weight=pseudo_weight,
+                    masks=masks,
                     mixed_img=mixed_img, mixed_lbl=mixed_lbl,
                     mixed_weight=mixed_weight, mixed_events=mixed_events,
                     mixed_isr=mixed_isr)
+
+    def _device_batch(self, batch: dict) -> dict:
+        """The batch on the device, wire-decoded (labels int32)."""
+        return decode_wire(_to_device(batch, self.device))
+
+    @torch.no_grad()
+    def debug_tensors(self, state: DACSTrainState, batch: dict,
+                      draws: StepDraws | None = None) -> dict:
+        """The mix construction of the step about to run on (state, batch)
+        with the same draws (default: the step's own), for the
+        class_mix_debug grids (reference dacs.py:882-1097). The EMA is
+        applied to a copy of the teacher: ``state`` is left unchanged."""
+        batch = self._device_batch(batch)
+        if draws is None:
+            draws = self.new_draws(state, batch["source"]["image"].shape[0])
+        P = self._prepare(state, batch, draws,
+                          copy.deepcopy(state.ema_model))
+        keys = ("day_image", "day_label", "day_isr", "day_events",
+                "night_image", "night_isr", "night_events", "pseudo_label",
+                "pseudo_weight", "masks", "mixed_img", "mixed_lbl",
+                "mixed_weight", "mixed_events", "mixed_isr", "use_events")
+        return {k: P[k] for k in keys}
 
     # ------------------------------------------------------------------
     # the step
@@ -322,16 +357,13 @@ class DACSTrainer:
                    draws: StepDraws | None = None):
         """One UDA iteration on ``batch`` ({'source': {image, img_self_res,
         label, img_time_res}, 'target': {image, isr, events}}: normalized
-        NHWC float32 images, int32 labels; numpy arrays or tensors).
-        Updates ``state`` in place; returns (state, logs) with the logs as
-        0-dim tensors on the device."""
-        batch = _to_device(batch, self.device)
-        for part in batch.values():
-            if "label" in part:
-                part["label"] = part["label"].to(torch.int32)
+        NHWC float32 images, int32 labels; numpy arrays or tensors; or the
+        wire dict of such a batch). Updates ``state`` in place; returns
+        (state, logs) with the logs as 0-dim tensors on the device."""
+        batch = self._device_batch(batch)
         if draws is None:
             draws = self.new_draws(state, batch["source"]["image"].shape[0])
-        P = self._prepare(state, batch, draws)
+        P = self._prepare(state, batch, draws, state.ema_model)
         weights = self._loss_weights()
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)

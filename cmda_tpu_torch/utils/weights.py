@@ -229,6 +229,26 @@ def load_reference_state_dict(model: nn.Module, sd: dict) -> nn.Module:
     return model
 
 
+def load_torch_file(path: str) -> dict:
+    """A state_dict saved with ``torch.save``, on the CPU; an mmcv-style
+    ``{'state_dict': ...}`` wrapper is unwrapped."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return ckpt.get("state_dict", ckpt)
+
+
+@torch.no_grad()
+def load_pretrained_backbone(backbone: nn.Module, sd: dict) -> nn.Module:
+    """An NVlabs ``mit_bX.pth`` state_dict into a MixVisionTransformer: its
+    keys are the backbone's own; the ImageNet classifier (``head.*``) and
+    any other extra key are left out, a missing or mis-shaped key raises."""
+    own = backbone.state_dict()
+    missing = [k for k in own if k not in sd]
+    if missing:
+        raise KeyError(f"pretrained backbone lacks {missing[:8]}")
+    backbone.load_state_dict({k: sd[k] for k in own})
+    return backbone
+
+
 # ---------------------------------------------------------------------------
 # the DACS training state
 # ---------------------------------------------------------------------------

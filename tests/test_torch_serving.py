@@ -95,6 +95,24 @@ def test_inference_segmentor_image_only_runs_isr(pair, png):
     assert_labels_match(ours, ref, jlogits, MARGIN)
 
 
+def test_image_isr_shift_all_matches_host_isr(pair, png):
+    """``data.shift_type='all'``: the port's image-only ISR (two kernel
+    directions averaged) equals the JAX package's host ISR, the mean of
+    the four one-sided terms, to 1e-5."""
+    _, tseg, _ = pair
+    cfg = TC.replace(tseg.cfg, data=TC.replace(tseg.cfg.data,
+                                               shift_type="all"))
+    seg = tapis.Segmentor(cfg, tseg.model, output="fusion")
+    pil = tapis.open_rgb(png)
+    p = cfg.data.target_isr
+    host = host_image_change(pil, val_range=tuple(p.val_range),
+                             threshold=p.threshold, clip_range=p.clip_range,
+                             shift_pixel=p.shift_pixel, shift_direction="all")
+    isr = tapis.image_isr(seg, pil)
+    assert isr.shape == (44, 60, 3)
+    np.testing.assert_allclose(isr[..., 0].numpy(), host, atol=1e-5, rtol=0)
+
+
 def test_segmentor_call_returns_logits_and_pred(pair):
     jseg, tseg, _ = pair
     img = np.random.default_rng(8).normal(size=(40, 50, 3)).astype(np.float32)

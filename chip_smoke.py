@@ -31,10 +31,12 @@ Phases, any failure exits non-zero:
      8 in float32 and bfloat16;
   5. the fused upsample+CE kernels (forward, dx, dweight) against the plain
      resize + weighted CE and its autograd gradients: the flagship loss
-     shape [2,128,128,19] -> [2,512,512] in float32 and bfloat16, non-square
+     shape [2,128,128,19] -> [2,512,512] and the bfloat16 step's
+     [8,128,128,19] -> [8,512,512] in float32 and bfloat16, non-square
      factors, all labels ignored, no weight, and the tiles' edge geometries
      (h or w of 1, sizes not multiples of the tile, factors 1, 2x3 and 3x4,
-     B = 1, C = 7 and 150); each run twice must give the same bits; timed
+     B = 1, C = 7 and 150); each run twice must give the same bits; the
+     dweight from labels off a 16-byte boundary; timed at both loss shapes
      beside the bound, the forward and dx with warm and cold L2;
   6. training: one DACS step of the micro config on the card through the
      kernels, against the same step on the card through their plain
@@ -47,7 +49,12 @@ Phases, any failure exits non-zero:
      time and memory breakdown of one step by CUDA events and allocator
      counters, the peak memory of the timed steps, and the device-busy
      time of one step under ``torch.profiler`` with each port kernel's
-     launches and device time in it;
+     launches and device time in it; then the same for the JAX package's
+     ``bench.py`` step, bfloat16 at batch 8: the micro step in bfloat16
+     through the kernels against through their plain versions on the card,
+     and the b5 step at 512x512 batch 8 (launches, the dtype of the logits
+     the CE kernels take, step time, samples/s, peak memory, sections,
+     busy share);
   7. the training run: ``cmda_tpu_torch.tools.train.main`` in-process on
      the same preset, synthetic data, bf16 wire feed, device prefetch 1,
      4 loader threads, 8 iterations logged each, a checkpoint, an
@@ -63,6 +70,7 @@ Phases, any failure exits non-zero:
      ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import gc
 import json
 import math
 import os
@@ -95,6 +103,10 @@ ISR_OPS_PER_PIXEL = 2 * (2 * 3 + 1 + 1 + 2 + 2 * 3) + 3
 # blends (8)
 CE_FWD_OPS_PER_PIXEL_CLASS = 13
 CE_DX_OPS_PER_PIXEL_CLASS = 25
+# operations per fine pixel of the dweight, given the forward's lse: the
+# label's class through two row blends and a column blend (9), then
+# (lse - z) * g/N (2)
+CE_DWEIGHT_OPS_PER_PIXEL = 11
 ARGMAX_TOL = 1e-5       # prob, absolute; labels may differ only at ties
 ISR_TOL = 1e-5          # absolute, values in [-1, 1]
 # fused CE: the loss to 1e-5 relative; dx and dweight, which are O(1/N),
@@ -279,6 +291,10 @@ ARGMAX_POINTS = {
     "step": ((2, 128, 128, 19), (512, 512), False),
     # the serving shape with the prob, timed by earlier checkouts
     "serving_b8_prob": ((8, 110, 160, 19), (440, 640), True),
+    # the bfloat16 DACS step at batch 8: float32 logits (its classifier
+    # runs in float32), the teacher with the prob, the accuracies without
+    "step_b8_prob": ((8, 128, 128, 19), (512, 512), True),
+    "step_b8": ((8, 128, 128, 19), (512, 512), False),
 }
 # the ISR where the main paths launch it: name -> [B, H, W]
 ISR_POINTS = {
@@ -286,6 +302,7 @@ ISR_POINTS = {
     "serving_all": (2, 440, 640),    # the same with shift_type='all'
     "step": (2, 512, 512),           # the DACS step's mixed ISR
     "b8": (8, 440, 640),             # timed by earlier checkouts
+    "step_b8": (8, 512, 512),        # the bfloat16 step's, at batch 8
 }
 # the points whose numbers the kernels line gives at its top level: those
 # earlier runs reported there
@@ -310,15 +327,17 @@ def _isr_kw(p, shift=None):
 def port_kernel_times(earlier=False):
     """Device time (``device_ms``) and per-call time (``cuda_ms``) of every
     port kernel at the points the main paths launch it: the CE forward
-    (also with cold L2) and dx at the flagship loss, ARGMAX_POINTS and
-    ISR_POINTS (the cs2dsec ISR preset). Inputs come from seed 1234, the
-    same in every checkout, so two checkouts compare on one card;
-    ``earlier`` also matches EARLIER_KERNEL_NAMES. Returns {point:
-    {"device_ms", "traces", "ms", "args"}}, ``traces`` the profiler traces
-    device_ms took and ``args`` the inputs timed."""
+    (also with cold L2) and dx at the flagship loss and at the bfloat16
+    step's batch 8 (CE_POINTS), the dweight at those points in float32 and
+    bfloat16, ARGMAX_POINTS and ISR_POINTS (the cs2dsec ISR preset). Inputs
+    come from seed 1234, the same in every checkout, so two checkouts
+    compare on one card; ``earlier`` also matches EARLIER_KERNEL_NAMES.
+    Returns {point: {"device_ms", "traces", "ms", "args"}}, ``traces`` the
+    profiler traces device_ms took and ``args`` the inputs timed."""
     import torch
     from cmda_tpu_torch import config as C
-    from cmda_tpu_torch.ops.fused_ce import (fused_resize_ce_dx,
+    from cmda_tpu_torch.ops.fused_ce import (fused_resize_ce_dweight,
+                                             fused_resize_ce_dx,
                                              fused_resize_ce_forward)
     from cmda_tpu_torch.ops.fused_resize import fused_resize_argmax
     from cmda_tpu_torch.ops.isr_kernel import batched_isr
@@ -351,6 +370,27 @@ def port_kernel_times(earlier=False):
         calls[f"isr_{name}"] = (
             lambda gray=gray, dirs=dirs: batched_isr(gray, dirs, **kw),
             names("batched_isr"), (gray, dirs, kw))
+    # drawn after the points above, which keep the inputs earlier runs timed
+    cases = {"flagship": (x, lbl, wgt)}
+    cases["step_b8"] = _ce_case(gen, *CE_POINTS["step_b8"], torch.float32,
+                                dev)
+    for point, (xp, lp, wp) in cases.items():
+        if point != "flagship":
+            _, lse_p = fused_resize_ce_forward(xp, lp, wp)
+            calls[f"ce_fwd_{point}"] = (
+                lambda xp=xp, lp=lp, wp=wp: fused_resize_ce_forward(
+                    xp, lp, wp), names("fused_resize_ce"), (xp, lp, wp))
+            calls[f"ce_dx_{point}"] = (
+                lambda xp=xp, lp=lp, wp=wp, lse_p=lse_p: fused_resize_ce_dx(
+                    g, xp, lp, wp, lse_p), names("fused_resize_ce_dx"),
+                (g, xp, lp, wp, lse_p))
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = xp.to(dtype)
+            _, lse_d = fused_resize_ce_forward(xd, lp, wp)
+            calls[f"ce_dweight_{point}_{_dtype_tag(dtype)}"] = (
+                lambda xd=xd, lp=lp, lse_d=lse_d: fused_resize_ce_dweight(
+                    g, xd, lp, lse_d), names("fused_resize_ce_dweight"),
+                (g, xd, lp, wp, lse_d))
     out = {}
     for k, (fn, nm, args) in calls.items():
         dev_ms, traces = device_ms(fn, nm)
@@ -361,6 +401,10 @@ def port_kernel_times(earlier=False):
         (out[k]["device_ms_cold_l2"],
          out[k]["traces_cold_l2"]) = device_ms(fn, nm, cold=True)
     return out
+
+
+def _dtype_tag(dtype):
+    return {"torch.float32": "f32", "torch.bfloat16": "bf16"}[str(dtype)]
 
 
 def _bitwise_repeat(fn, what):
@@ -557,23 +601,52 @@ def _grads(fn, x, lbl, wgt):
 
 
 CE_FLAGSHIP = ((2, 128, 128, 19), (512, 512))
+# the CE kernels where the main paths launch them: the float32 step's loss
+# at batch 2 and the bfloat16 step's at batch 8 (float32 logits there too:
+# the classifier runs in float32)
+CE_POINTS = {"flagship": CE_FLAGSHIP,
+             "step_b8": ((8, 128, 128, 19), (512, 512))}
+
+
+def ce_bounds(shape, size, elt):
+    """{kernel: (bound ms, bound_by)} of the three CE kernels at logits
+    ``shape`` of ``elt`` bytes an element and labels of ``size``."""
+    (b, h, w, c), (hh, ww) = shape, size
+    n_fine = b * hh * ww
+    logits_b, pix_b = b * h * w * c * elt, n_fine * 4
+    return {
+        # logits, labels, weights in; the scalar out
+        "fwd": bound(logits_b + 2 * pix_b + 4,
+                     n_fine * c * CE_FWD_OPS_PER_PIXEL_CLASS),
+        # logits, labels, weights in; dx out
+        "dx": bound(2 * logits_b + 2 * pix_b,
+                    n_fine * c * CE_DX_OPS_PER_PIXEL_CLASS),
+        # logits, labels and the forward's lse in; dweight out
+        "dweight": bound(logits_b + 3 * pix_b,
+                         n_fine * CE_DWEIGHT_OPS_PER_PIXEL),
+    }
 
 
 def phase_ce(gen, times):
     """Kernels 1-3 (fused upsample+CE forward, dx, dweight) against the
     plain resize + weighted CE and its autograd gradients, on the card, at
-    the flagship shape and at edge geometries of the tiles; each kernel run
-    twice must give the same bits."""
+    the main paths' shapes (CE_POINTS) and at edge geometries of the tiles;
+    each kernel run twice must give the same bits; the dweight also from
+    labels at an address off 16 bytes (its per-pixel instantiation). Then
+    their times at CE_POINTS beside the plain version's and the bound."""
     import torch
     import torch.nn.functional as F
     from cmda_tpu_torch.ops.fused_ce import (
-        fused_resize_ce, fused_resize_ce_dweight, resize_ce)
+        fused_resize_ce, fused_resize_ce_dweight, fused_resize_ce_forward,
+        resize_ce)
     dev = torch.device("cuda")
     f32, bf16 = torch.float32, torch.bfloat16
-    flagship = CE_FLAGSHIP
+    flagship, b8 = CE_POINTS["flagship"], CE_POINTS["step_b8"]
     cases = {  # name: (shape, size, dtype, weighted, ignored share)
         "flagship_f32": (*flagship, f32, True, 0.05),
         "flagship_bf16": (*flagship, bf16, True, 0.05),
+        "step_b8_f32": (*b8, f32, True, 0.05),
+        "step_b8_bf16": (*b8, bf16, True, 0.05),
         "nonsquare_3x4": ((2, 32, 40, 19), (96, 160), f32, True, 0.05),
         "all_ignored": ((2, 32, 40, 19), (128, 160), f32, True, 1.0),
         "no_weight": (*flagship, f32, False, 0.05),
@@ -583,6 +656,7 @@ def phase_ce(gen, times):
         "w1": ((2, 7, 1, 19), (28, 4), f32, True, 0.05),
         # h and w not multiples of the tiles
         "ragged": ((2, 37, 45, 19), (148, 180), f32, True, 0.05),
+        "ragged_bf16": ((2, 37, 45, 19), (148, 180), bf16, True, 0.05),
         "factor_1": ((2, 24, 40, 19), (24, 40), f32, True, 0.05),
         "fh2_fw3": ((2, 20, 30, 19), (40, 90), f32, True, 0.05),
         "fh3_fw4": ((2, 21, 33, 19), (63, 132), f32, True, 0.05),
@@ -591,6 +665,7 @@ def phase_ce(gen, times):
         # a large C forces the smaller tiles (and over 48 KB of shared
         # memory for the dx)
         "c150": ((2, 16, 24, 150), (64, 96), f32, True, 0.05),
+        "c150_bf16": ((2, 16, 24, 150), (64, 96), bf16, True, 0.05),
     }
     worst = {"loss": 0.0, "dx": 0.0, "dweight": 0.0}
     for name, (shape, size, dtype, weighted, ignored) in cases.items():
@@ -633,84 +708,110 @@ def phase_ce(gen, times):
             for k, v in diffs.items():
                 worst[k] = max(worst[k], float(v))
 
-    # timing at the flagship shape, float32 with pixel weights, on the
-    # inputs port_kernel_times timed the forward and dx on
-    (b, h, w, c), (hh, ww) = flagship
-    g, x, lbl, wgt, lse = times["ce_dx"]["args"]
-    n_fine, n_coarse = b * hh * ww, b * h * w
-    ms = {"fwd": times["ce_fwd"]["ms"], "dx": times["ce_dx"]["ms"],
-          "dweight": cuda_ms(lambda: fused_resize_ce_dweight(g, x, lbl, lse))}
-    dev_ms = {k: {"warm": times[f"ce_{k}"]["device_ms"],
-                  "cold": times[f"ce_{k}"]["device_ms_cold_l2"],
-                  "traces": times[f"ce_{k}"]["traces"],
-                  "traces_cold": times[f"ce_{k}"]["traces_cold_l2"]}
-              for k in ("fwd", "dx")}
-    warm, traces = device_ms(
-        lambda: fused_resize_ce_dweight(g, x, lbl, lse),
-        KERNEL_NAMES["fused_resize_ce_dweight"])
-    dev_ms["dweight"] = {"warm": warm, "traces": traces}
+    # labels 4 bytes past a 16-byte boundary: the dweight's per-pixel
+    # instantiation, against the vectorised one on the same values
+    x, lbl, wgt = _ce_case(gen, *flagship, f32, dev)
+    g = torch.ones((), device=dev)
+    _, lse = fused_resize_ce_forward(x, lbl, wgt)
+    buf = torch.empty(lbl.numel() + 1, dtype=torch.int32, device=dev)
+    lbl_off = buf[1:].view(lbl.shape)
+    lbl_off.copy_(lbl)
+    if lbl_off.data_ptr() % 16 == 0:
+        fail("ce dweight: the offset labels are 16-byte aligned")
+    a = fused_resize_ce_dweight(g, x, lbl, lse)
+    b = _bitwise_repeat(lambda: fused_resize_ce_dweight(g, x, lbl_off, lse),
+                        "ce dweight, offset labels")
+    err = float((a - b).abs().max() / a.abs().max())
+    print(f"ce dweight with labels off 16 bytes (per-pixel kernel) vs "
+          f"aligned (4 pixels a thread): {err:.3g} of max|dweight| "
+          f"(tolerance {CE_REL_TOL:g}); bitwise equal on a second run",
+          flush=True)
+    if not err <= CE_REL_TOL:
+        fail(f"ce dweight: offset labels give {err} of max|dweight|")
 
-    def plain_fwd_bwd(wrt_weight):
+    # timing at CE_POINTS (the forward and dx in float32, as both steps
+    # launch them; the dweight also in bfloat16), with pixel weights, on the
+    # inputs port_kernel_times timed
+    def plain_fwd_bwd(x, lbl, wgt, wrt_weight):
         xg = x.detach().requires_grad_(not wrt_weight)
         wg = wgt.detach().requires_grad_(wrt_weight)
         resize_ce(xg, lbl, wg).backward()
 
-    with torch.no_grad():
-        plain_fwd = cuda_ms(lambda: resize_ce(x, lbl, wgt))
-    plain = {"fwd": plain_fwd,
-             "dx": cuda_ms(lambda: plain_fwd_bwd(False)),
-             "dweight": cuda_ms(lambda: plain_fwd_bwd(True))}
-    lbl64 = lbl.long()
+    points = {"fwd": {}, "dx": {}, "dweight": {}}
+    pair_ms = None
+    for point, (shape, size) in CE_POINTS.items():
+        sfx = "" if point == "flagship" else f"_{point}"
+        _, x, lbl, wgt, _ = times[f"ce_dx{sfx}"]["args"]
+        with torch.no_grad():
+            plain_fwd = cuda_ms(lambda: resize_ce(x, lbl, wgt))
+        plain = {"fwd": plain_fwd,
+                 "dx": cuda_ms(lambda: plain_fwd_bwd(x, lbl, wgt, False))}
+        bounds = ce_bounds(shape, size, 4)
+        for k in ("fwd", "dx"):
+            t = times[f"ce_{k}{sfx}"]
+            points[k][point] = {
+                "device_ms": t["device_ms"], "traces": t["traces"],
+                "ms": t["ms"], "plain_ms": plain[k],
+                "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
+            if "device_ms_cold_l2" in t:
+                points[k][point].update(
+                    device_ms_cold_l2=t["device_ms_cold_l2"],
+                    traces_cold_l2=t["traces_cold_l2"])
+        for dtype in (f32, bf16):
+            t = times[f"ce_dweight_{point}_{_dtype_tag(dtype)}"]
+            xd = t["args"][1]
+            bd = ce_bounds(shape, size, xd.element_size())["dweight"]
+            points["dweight"][f"{point}_{_dtype_tag(dtype)}"] = {
+                "device_ms": t["device_ms"], "traces": t["traces"],
+                "ms": t["ms"], "plain_ms": cuda_ms(
+                    lambda: plain_fwd_bwd(xd, lbl, wgt, True)),
+                "bound_ms": bd[0], "bound_by": bd[1]}
+        if point == "flagship":
+            (hh, ww), lbl64 = size, lbl.long()
 
-    def library_pair():
-        z = F.interpolate(x.permute(0, 3, 1, 2), size=(hh, ww),
-                          mode="bilinear", align_corners=False)
-        return (F.cross_entropy(z, lbl64, ignore_index=255, reduction="none")
-                * wgt).mean()
-    with torch.no_grad():
-        pair_ms = cuda_ms(library_pair)
-    elt = x.element_size()
-    logits_b, pix_b = n_coarse * c * elt, n_fine * 4
-    bounds = {
-        # logits, labels, weights in; the scalar out
-        "fwd": bound(logits_b + 2 * pix_b + 4,
-                     n_fine * c * CE_FWD_OPS_PER_PIXEL_CLASS),
-        # logits, labels, weights in; dx out
-        "dx": bound(2 * logits_b + 2 * pix_b,
-                    n_fine * c * CE_DX_OPS_PER_PIXEL_CLASS),
-        # logits, labels in; dweight out
-        "dweight": bound(logits_b + 2 * pix_b,
-                         n_fine * c * CE_FWD_OPS_PER_PIXEL_CLASS),
-    }
+            def library_pair():
+                z = F.interpolate(x.permute(0, 3, 1, 2), size=(hh, ww),
+                                  mode="bilinear", align_corners=False)
+                return (F.cross_entropy(z, lbl64, ignore_index=255,
+                                        reduction="none") * wgt).mean()
+            with torch.no_grad():
+                pair_ms = cuda_ms(library_pair)
+    for k, pts in points.items():
+        for point, q in pts.items():
+            print(f"ce timing {k} {point}: device {q['device_ms']:.4f} ms"
+                  + (f" warm L2, {q['device_ms_cold_l2']:.4f} ms cold L2"
+                     if "device_ms_cold_l2" in q else "")
+                  + f"; per call {q['ms']:.4f} ms, plain {q['plain_ms']:.4f} "
+                  f"ms ({'forward' if k == 'fwd' else 'forward+backward'}), "
+                  f"bound {q['bound_ms']:.4f} ms ({q['bound_by']})",
+                  flush=True)
     names = {"fwd": ("fused_resize_ce", "cmda_tpu/ops/pallas_ce.py:114"),
              "dx": ("fused_resize_ce_dx", "cmda_tpu/ops/pallas_ce.py:141"),
              "dweight": ("fused_resize_ce_dweight",
                          "cmda_tpu/ops/pallas_ce.py:196")}
+    # the top-level numbers stay at the flagship float32 point, as earlier
+    # runs reported them; every point is under "points"
+    top = {"fwd": "flagship", "dx": "flagship", "dweight": "flagship_f32"}
     out = []
     for k, (kname, replaces) in names.items():
-        bound_ms, bound_by = bounds[k]
-        d = dev_ms[k]
-        print(f"ce timing {kname} [2,128,128,19]->[2,512,512] f32: device "
-              f"{d['warm']:.4f} ms warm L2"
-              + (f", {d['cold']:.4f} ms cold L2" if "cold" in d else "")
-              + f"; per call {ms[k]:.4f} ms, plain {plain[k]:.4f} ms "
-              f"({'forward' if k == 'fwd' else 'forward+backward'}), bound "
-              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        q = points[k][top[k]]
         out.append({"name": kname, "route": "cuda",
                     "source": "cmda_tpu_torch/csrc/fused_resize_ce.cu",
                     "replaces": replaces, "max_abs_err": worst[
                         "loss" if k == "fwd" else k],
-                    "ms": ms[k], "device_ms": d["warm"],
-                    "traces": d["traces"],
-                    "device_ms_cold_l2": d.get("cold"),
-                    "traces_cold_l2": d.get("traces_cold"),
-                    "plain_ms": plain[k], "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None,
-                    "library_pair_ms": pair_ms})
-    print(f"ce timing: kernels fwd+dx {ms['fwd'] + ms['dx']:.4f} ms per call "
-          f"vs plain fwd+bwd {plain['dx']:.4f} ms; F.interpolate + "
-          f"F.cross_entropy (two calls, forward only) {pair_ms:.4f} ms",
-          flush=True)
+                    "ms": q["ms"], "device_ms": q["device_ms"],
+                    "traces": q["traces"],
+                    "device_ms_cold_l2": q.get("device_ms_cold_l2"),
+                    "traces_cold_l2": q.get("traces_cold_l2"),
+                    "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"],
+                    "bound_by": q["bound_by"], "library_ms": None,
+                    "library_pair_ms": pair_ms, "point": top[k],
+                    "points": points[k]})
+    q = {k: points[k]["flagship"]["ms"] for k in ("fwd", "dx")}
+    print(f"ce timing: kernels fwd+dx {q['fwd'] + q['dx']:.4f} ms per call "
+          f"vs plain fwd+bwd {points['dx']['flagship']['plain_ms']:.4f} ms; "
+          f"F.interpolate + F.cross_entropy (two calls, forward only) "
+          f"{pair_ms:.4f} ms", flush=True)
     return out
 
 
@@ -853,6 +954,13 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_ACC_ATOL = 100.0 * 8 / (2 * 64 * 64)
 TRAIN_KERNEL_MOMENT_RTOL = 1e-5
 TRAIN_MOMENT_RTOL = 5e-4
+# the same micro step in bfloat16, through the kernels against through the
+# plain versions on the card: the forwards are the same ops until the float32
+# losses, which agree to ~1e-7, and the backward rounds the gradients to
+# bfloat16 at every activation, where a difference that small can move a
+# value by a unit of its last place (2^-8 relative) now and then; the first
+# moments to 2^-6 of the largest
+TRAIN_BF16_KERNEL_MOMENT_RTOL = 2.0 ** -6
 
 
 def _kernel_counters():
@@ -945,18 +1053,19 @@ def _check_moments(state, ref_state, rtol, what):
     return diff[0][0] / scale
 
 
-def phase_train_micro():
+def phase_train_micro(dtype="float32"):
     """One DACS step of the micro config (CycleGAN on) from one state,
     batch and draws: on the card through the kernels, on the card through
-    their plain versions, and on the CPU; held by the losses and by the
-    gradients each hands AdamW (the first moments after the step)."""
+    their plain versions, and (float32) on the CPU; held by the losses and
+    by the gradients each hands AdamW (the first moments after the step)."""
     from cmda_tpu_torch import config as C
     from cmda_tpu_torch.data.synthetic import (SyntheticSource,
                                                SyntheticTarget, uda_batch)
     from cmda_tpu_torch.uda.dacs import DACSTrainer
     cfg = C.micro_test_config()
     cfg = C.replace(cfg, uda=C.replace(cfg.uda, use_cyclegan_day_events=True),
-                    data=C.replace(cfg.data, crop_size=TRAIN_MICRO_HW))
+                    data=C.replace(cfg.data, crop_size=TRAIN_MICRO_HW),
+                    dtype=dtype)
     cpu, gpu = DACSTrainer(cfg, device="cpu"), DACSTrainer(cfg, device="cuda")
     s_cpu, s_gpu, s_plain = cpu.init_state(), gpu.init_state(), gpu.init_state()
     for s in (s_gpu, s_plain):
@@ -966,7 +1075,8 @@ def phase_train_micro():
     batch = uda_batch(SyntheticSource(crop_size=TRAIN_MICRO_HW),
                       SyntheticTarget(crop_size=TRAIN_MICRO_HW), [0, 1])
     draws = cpu.new_draws(s_cpu, 2)
-    _, ref = cpu.train_step(s_cpu, batch, draws)
+    if dtype == "float32":
+        _, ref = cpu.train_step(s_cpu, batch, draws)
     logs, _ = _counted_step(gpu, s_gpu, batch, draws.to("cuda"))
     counters = _kernel_counters()
     before = {k: fn.launches for k, fn in counters.items()}
@@ -976,6 +1086,19 @@ def phase_train_micro():
         fail("train micro: the plain-version step launched a kernel")
     plain = {k: float(v) for k, v in plain.items()}
     loss_plain = _check_logs(logs, plain, "kernels vs plain on cuda")
+    if dtype != "float32":
+        m_plain = _check_moments(s_gpu, s_plain,
+                                 TRAIN_BF16_KERNEL_MOMENT_RTOL,
+                                 "bfloat16, kernels vs plain on cuda")
+        print(f"train micro bfloat16: one step, losses max relative error "
+              f"{loss_plain:.3g} (kernels vs plain on cuda), tolerance "
+              f"{TRAIN_LOSS_RTOL:g}; AdamW first moments within "
+              f"{m_plain:.3g} of the largest (tolerance "
+              f"{TRAIN_BF16_KERNEL_MOMENT_RTOL:g}); acc_seg "
+              f"{logs['src/acc_seg']:.3f}/{logs['mix/acc_seg']:.3f} vs plain "
+              f"{plain['src/acc_seg']:.3f}/{plain['mix/acc_seg']:.3f}",
+              flush=True)
+        return
     loss_cpu = _check_logs(logs, ref, "cuda vs cpu")
     m_plain = _check_moments(s_gpu, s_plain, TRAIN_KERNEL_MOMENT_RTOL,
                              "kernels vs plain on cuda")
@@ -1033,25 +1156,31 @@ def _busy_ms(prof):
     return busy / 1e3, len(spans)
 
 
-def phase_train():
+def phase_train(dtype="float32", batch=None):
     """The DACS training step of the flagship cs2dsec MiT-b5 preset at
-    512x512, batch 2, float32: 3 counted steps, then the step time, its
+    512x512: float32 at the preset's batch 2, or the JAX package's
+    ``bench.py`` step (bfloat16 at batch 8). 3 counted steps (launches,
+    the dtype of the logits each CE launch takes), then the step time, its
     device-time breakdown and the peak memory. Returns the launches of the
     3 counted steps by kernel."""
     import torch
     from cmda_tpu_torch import config as C
     from cmda_tpu_torch.data.synthetic import (SyntheticSource,
                                                SyntheticTarget, uda_batch)
+    from cmda_tpu_torch.uda import transforms
     from cmda_tpu_torch.uda.dacs import DACSTrainer
     cfg = C.cs2dsec_image_events_b5()
+    cfg = C.replace(cfg, dtype=dtype, data=C.replace(
+        cfg.data, batch_size=batch or cfg.data.batch_size))
+    tag = "train" if dtype == "float32" else "train_bf16"
     b, (w, h) = cfg.data.batch_size, cfg.data.crop_size
     t0 = time.perf_counter()
     trainer = DACSTrainer(cfg, device="cuda")
     state = trainer.init_state(seed=0)
     n_params = sum(p.numel() for p in state.model.parameters())
     torch.cuda.synchronize()
-    print(f"train: cs2dsec MiT-b5 DACS, {n_params} params, {h}x{w} batch {b} "
-          f"float32, remat {cfg.model.remat}, built in "
+    print(f"{tag}: cs2dsec MiT-b5 DACS, {n_params} params, {h}x{w} batch {b} "
+          f"{dtype}, remat {cfg.model.remat}, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     src = SyntheticSource(crop_size=(w, h))
     tgt = SyntheticTarget(crop_size=(w, h))
@@ -1059,12 +1188,19 @@ def phase_train():
                for i in range(10)]
     student0 = [p.detach().clone() for p in state.model.parameters()]
     totals = dict.fromkeys(TRAIN_COUNTED, 0)
+    ce_dtypes = set()
+    real_ce = transforms.fused_resize_ce
+
+    def recorded_ce(x, *args, **kwargs):
+        ce_dtypes.add(str(x.dtype))
+        return real_ce(x, *args, **kwargs)
     for i in range(3):
         t0 = time.perf_counter()
-        logs, launches = _counted_step(trainer, state, batches[i])
+        with mock.patch.object(transforms, "fused_resize_ce", recorded_ce):
+            logs, launches = _counted_step(trainer, state, batches[i])
         for k, v in launches.items():
             totals[k] += v
-        print(f"train step {i}: {time.perf_counter() - t0:.2f} s, launches "
+        print(f"{tag} step {i}: {time.perf_counter() - t0:.2f} s, launches "
               f"{launches}, loss {logs['loss']:.5f}, src/loss_seg "
               f"{logs['src/loss_seg']:.5f}, mix/loss_seg "
               f"{logs['mix/loss_seg']:.5f}, pseudo_weight "
@@ -1074,15 +1210,16 @@ def phase_train():
             same = all(torch.equal(e, p) for e, p in
                        zip(state.ema_model.parameters(), student0))
             if not same:
-                fail("after step 0 the EMA teacher is not the pre-update "
-                     "student")
+                fail(f"{tag}: after step 0 the EMA teacher is not the "
+                     "pre-update student")
     moved = sum(int(not torch.equal(p, q)) for p, q in
                 zip(state.model.parameters(), student0))
-    print(f"train: after 3 steps {moved} of {len(student0)} parameter "
+    print(f"{tag}: after 3 steps {moved} of {len(student0)} parameter "
           f"tensors moved; EMA teacher after step 0 == the pre-update "
-          f"student", flush=True)
+          f"student; the CE kernels took logits of {sorted(ce_dtypes)}",
+          flush=True)
     if moved == 0:
-        fail("train: no parameter moved")
+        fail(f"{tag}: no parameter moved")
     del student0
 
     # the peak of the timed steps, without the copy of the student above
@@ -1114,6 +1251,8 @@ def phase_train():
     prof_ms, busy_ms, n_events, step_kernels = _device_busy(
         trainer, state, batches[9])
     timings = {"train_step_ms_median": statistics.median(step_ms),
+               "train_samples_per_s": b / statistics.median(step_ms) * 1e3,
+               "train_ce_logits_dtypes": sorted(ce_dtypes),
                "train_step_ms": step_ms, "train_peak_gib": peak,
                "train_breakdown_ms": breakdown,
                "train_start_live_gib": start_gib,
@@ -1122,28 +1261,28 @@ def phase_train():
                "train_device_busy_ms": busy_ms,
                "train_device_events": n_events,
                "train_step_kernels": step_kernels}
-    print("train: profiled step " + (
+    print(f"{tag}: profiled step " + (
         f"{prof_ms:.2f} ms host, device busy {busy_ms:.2f} ms "
         f"({100 * busy_ms / prof_ms:.1f}%) over {n_events} device events"
         if busy_ms is not None else
         f"{prof_ms:.2f} ms host, device busy not measured (the trace holds "
         "no device event)"), flush=True)
-    print("train: the port's kernels in the profiled step (launches, device "
+    print(f"{tag}: the port's kernels in the profiled step (launches, device "
           "ms): " + ", ".join(f"{n} {k} x {t:.4f} ms"
                               for n, (k, t) in step_kernels.items()),
           flush=True)
-    print(f"train: step time median {statistics.median(step_ms):.2f} ms over "
+    print(f"{tag}: step time median {statistics.median(step_ms):.2f} ms over "
           f"5 steps ({', '.join(f'{t:.2f}' for t in step_ms)}), "
           f"{b / statistics.median(step_ms) * 1e3:.3f} samples/s; peak device "
           f"memory {peak:.2f} GiB", flush=True)
-    print("train: step device ms " + ", ".join(
+    print(f"{tag}: step device ms " + ", ".join(
         f"{k} {v:.2f} ({100 * v / total:.1f}%)" for k, v in breakdown.items())
         + f"; sum {total:.2f}", flush=True)
-    print(f"train: step memory GiB, live at its start {start_gib:.2f}; per "
+    print(f"{tag}: step memory GiB, live at its start {start_gib:.2f}; per "
           "section peak / live at its end: " + ", ".join(
               f"{k} {p:.2f} / {lv:.2f}" for k, (p, lv) in memory.items()),
           flush=True)
-    print("train timings " + json.dumps(timings), flush=True)
+    print(f"{tag} timings " + json.dumps(timings), flush=True)
     return totals
 
 
@@ -1275,7 +1414,6 @@ def phase_loop():
     evaluation; then a checkpoint loaded in a fresh trainer against the
     state it was written from, and the last checkpoint served."""
     import copy
-    import gc
     import torch
     from torch.profiler import ProfilerActivity, profile
     from cmda_tpu_torch import config as C
@@ -1626,14 +1764,23 @@ def main():
     results += phase_ce(gen, times)
     phase_train_micro()
     launches = phase_train()
+    # the JAX package's bench.py step: bfloat16 at batch 8
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_micro("bfloat16")
+    bf16_launches = phase_train("bfloat16", batch=8)
+    gc.collect()
+    torch.cuda.empty_cache()
     loop_launches = phase_loop()
     for r in results:
         # the serving kernels keep their serving-path count under
         # "launches"; the training path's count goes beside it, and the
-        # training run's (8 iterations, 2 debug snapshots, 2 evaluations)
+        # bfloat16 step's (3 steps) and the training run's (8 iterations,
+        # 2 debug snapshots, 2 evaluations)
         key = ("launches" if r["name"].startswith("fused_resize_ce")
                else "launches_train")
         r[key] = launches[r["name"]]
+        r["launches_train_bf16"] = bf16_launches[r["name"]]
         r["launches_loop"] = loop_launches[r["name"]]
 
     print(json.dumps({"kernels": results}), flush=True)

@@ -71,12 +71,32 @@
 //    computed ~1.5 times (the halo shared with neighbouring blocks) instead
 //    of 4; the dx stores are coalesced, with the bf16 conversion at the
 //    store.
-// 3. dweight. Replaces _bwd_dw_call (kernel body _ce_dw_kernel):
-//       dwt[b,y,x] = (lse - z_label) * g / (B*H*W), 0 where ignored.
-//    Bound: bytes (labels, lse, dwt and the logits, ~8.9 MB, ~2.7 us). One
-//    thread per fine pixel rebuilding its taps from global memory; one blend
-//    per pixel, since lse comes from the forward. No path launches it in a
-//    training step, so it keeps this simple form.
+// 3. dweight, ce_dweight_kernel. Replaces _bwd_dw_call (kernel body
+//    _ce_dw_kernel):
+//       dwt[b,y,x] = (lse - z_label) * g / (B*H*W), 0 where ignored,
+//    with lse from the forward, so a fine pixel needs only its label's
+//    class: two 2-tap row blends and a column blend. Bound: bytes (logits,
+//    labels, lse and dwt, ~8.8 MB at the flagship, ~2.6 us); ~11 operations
+//    per fine pixel are far below it. The first design (one thread per fine
+//    pixel) paid 64-bit index divisions and up to nine scattered 4-byte
+//    gathers of the label's class per pixel, each its own sector, with no
+//    reuse between the 16 fine pixels that share a coarse tap. Design: a
+//    block owns 4 x 32 coarse pixels at factor 4 (16 x 128 fine pixels, 256
+//    blocks at the flagship, all resident at once) and stages coarse rows
+//    i0-1 .. i0+4 and columns j0-1 .. j0+32, every class, in shared memory.
+//    At C = 19 (odd, so a staged row is the coarse row's run as it lies in
+//    device memory) the run is read in aligned 16-byte chunks: float32 by
+//    16-byte cp.async, bfloat16 through registers; column taps outside the
+//    image are clamped when read, not copied. Each thread loads the labels
+//    and lse of its 2 units (a unit: the 4 fine pixels of one coarse column
+//    in one fine row) as 16-byte vectors before the tile is staged, so the
+//    block waits on device memory once, then reads 4 shared-memory words a
+//    pixel and writes the unit's 4 dweights as one vector. Any other C or
+//    factor (or an unaligned pointer) stages element by element and takes a
+//    thread per fine pixel. Measured against the design's variants on the
+//    card (PERF.md §6): 2 coarse rows a tile (more halo), 512 threads,
+//    4-byte copies, splitting the wait in two and a barrier to fill the
+//    halo columns were each slower.
 //
 // Tensor cores are not used: the blends are 2-tap stencils, so as products
 // with a dense interpolation matrix their reduction depth (TI+2 coarse rows)
@@ -91,9 +111,9 @@
 // take exp as exp2 of a pre-scaled argument.
 //
 // Tile sizes are picked at launch from C and the factors (pick_tile): the
-// target is 8 fine rows by 32 coarse columns, halved until the block's
-// shared memory fits kSmemBudget; above 48 KB the kernel is given the
-// dynamic shared-memory attribute. The upstream gradient g is read on the
+// target is 8 fine rows (the dweight's 16) by 32 coarse columns, halved
+// until the block's shared memory fits kSmemBudget; above 48 KB the kernel
+// is given the dynamic shared-memory attribute. The upstream gradient g is read on the
 // device from a pointer, so the backward never waits on the host.
 
 #include "phase_tile.cuh"
@@ -108,7 +128,6 @@ using phase_tile::ColTap;
 using phase_tile::exp2_approx;
 using phase_tile::fill_phase_tab;
 using phase_tile::grid_of;
-using phase_tile::load_f;
 using phase_tile::PhaseTab;
 using phase_tile::PhaseW;
 using phase_tile::phase_weights;
@@ -493,75 +512,270 @@ ce_dx_kernel(const float* __restrict__ g, const T* __restrict__ x,
 
 // ---------------------------------------------------------------- dweight
 
-// The coarse taps of one fine pixel (b, y = fh*i + p, x = fw*j + q).
+constexpr int kDwThreads = 256;
+// The tile's fine rows: ti = kDwFineRows / fh coarse rows.
+constexpr int kDwFineRows = 16;
+// Units a thread has in flight at once (their labels and lse in registers).
+constexpr int kDwUnits = 2;
+// 16-byte chunks of the tile a thread has in flight at once.
+constexpr int kStageChunks = 4;
+// Floats a staged row has beyond its columns: room for a row that starts up
+// to 7 floats in (16-byte copies keep their source's alignment) and for a
+// last copy that runs 3 floats past the row's end.
+constexpr int kRowSlack = 12;
+
+// Shared memory: the coarse tile (ti+2) x (tj+2) x cp in padded rows, each
+// row's offset, the row and column phase tables.
+size_t dweight_smem(int ti, int tj, int C, int fh, int fw) {
+  return (size_t)(ti + 2) * (row_stride(tj + 2, class_stride(C)) + kRowSlack)
+             * 4
+         + (size_t)(ti + 2) * sizeof(int) + (size_t)(fh + fw) * sizeof(PhaseTab);
+}
+
+// Value i of a 16-byte chunk of T held in registers (i known when compiled).
 template <typename T>
-struct Taps {
-  const T *r_i, *r_p, *r_n;   // coarse rows i, i-1, i+1 (clamped)
-  long long cj, cp, cn;       // column offsets j, j-1, j+1 (clamped) * C
-  PhaseW wr, wq;
+__device__ __forceinline__ float chunk_value(const uint4& v, int i) {
+  constexpr int kPerWord = 4 / (int)sizeof(T);
+  const unsigned int word = i / kPerWord == 0 ? v.x
+                            : i / kPerWord == 1 ? v.y
+                            : i / kPerWord == 2 ? v.z : v.w;
+  if constexpr (sizeof(T) == 4) return __uint_as_float(word);
+  // a bfloat16 is the top half of a float32
+  return __uint_as_float(i % 2 == 0 ? word << 16 : word & 0xffff0000u);
+}
 
-  __device__ __forceinline__ Taps(const T* x, int b, int i, int p, int j,
-                                  int q, int h, int w, int C, int fh,
-                                  int fw) {
-    const long long rs = (long long)w * C;
-    const T* base = x + (long long)b * h * rs;
-    r_i = base + (long long)i * rs;
-    r_p = base + (long long)max(i - 1, 0) * rs;
-    r_n = base + (long long)min(i + 1, h - 1) * rs;
-    cj = (long long)j * C;
-    cp = (long long)max(j - 1, 0) * C;
-    cn = (long long)min(j + 1, w - 1) * C;
-    wr = phase_weights(p, fh);
-    wq = phase_weights(q, fw);
+__device__ __forceinline__ float as_float(float v) { return v; }
+__device__ __forceinline__ float as_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// The tile when the class stride is C itself (C odd): a staged row is then
+// the coarse row's run of in-image columns as it lies in device memory, and
+// is read in 16-byte chunks at 16-byte aligned addresses (x must be 16-byte
+// aligned), a few per thread instead of one copy per element. float32 goes
+// by 16-byte cp.async, which keeps the source's alignment in shared memory:
+// row r's element 0 lands rowoff[r] = 4 + ((s_r - d0) mod 4) floats into
+// its row; a copy that would reach past the logits' end (nx elements) goes
+// element by element. bfloat16 goes through registers (rowoff 0). Staged
+// columns outside the image (the clamped halo, and a cut tile's columns
+// past the edge) hold whatever the copies left there: the caller clamps its
+// column taps to the image instead.
+template <typename T>
+__device__ __forceinline__ void stage_rows(
+    float* dst, int* rowoff, const T* __restrict__ x, long long nx, int b,
+    int h, int w, int C, int rs, int r0, int nrows, int c0, int ncols) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr bool kAsync = sizeof(T) == 4;
+  const int cs = max(c0, 0), ce = min(c0 + ncols, w);   // in-image columns
+  const int n = (ce - cs) * C, d0 = (cs - c0) * C;   // a row's run, its offset
+  const int nch = n / V + 2;   // chunks a row's run touches, at most
+  // staged row r is coarse row r0 + r, clamped to the image
+  auto run_start = [&](int r) {
+    return (((long long)b * h + clampi(r0 + r, 0, h - 1)) * w + cs) * C;
+  };
+  if ((int)threadIdx.x < nrows)
+    rowoff[threadIdx.x] =
+        kAsync ? 4 + (int)((run_start(threadIdx.x) - d0) & 3) : 0;
+  const int total = nrows * nch;
+  StridedDivmod it(threadIdx.x, kDwThreads, nch);   // (row, chunk)
+  for (int base = 0; base < total; base += kStageChunks * kDwThreads) {
+    uint4 v[kStageChunks];
+    int off[kStageChunks], row[kStageChunks];   // chunk start - run start
+    long long run[kStageChunks];
+#pragma unroll
+    for (int k = 0; k < kStageChunks; ++k, it.next()) {
+      const int e = base + k * kDwThreads + threadIdx.x;
+      row[k] = -1;
+      if (e >= total) continue;
+      const int r = it.q, c = it.r;
+      const long long s = run_start(r);
+      const long long a = (s & ~(long long)(V - 1)) + (long long)c * V;
+      if (a >= s + n) continue;
+      row[k] = r;
+      run[k] = s;
+      off[k] = (int)(a - s);
+      if constexpr (kAsync) {
+        float* out = dst + r * rs + 4 + (int)((s - d0) & 3) + d0 + off[k];
+        if (a + V <= nx) {
+          __pipeline_memcpy_async(out, x + a, 16);
+        } else {   // the logits' last chunk
+          for (int i = 0; i < V && a + i < nx; ++i)
+            __pipeline_memcpy_async(out + i, x + a + i, 4);
+        }
+      } else if (a + V <= nx) {
+        v[k] = __ldg(reinterpret_cast<const uint4*>(x + a));
+      }
+    }
+    if constexpr (!kAsync) {
+#pragma unroll
+      for (int k = 0; k < kStageChunks; ++k) {
+        if (row[k] < 0) continue;
+        const bool whole = run[k] + off[k] + V <= nx;
+        float* out = dst + row[k] * rs + d0;   // element 0 of the run
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const int el = off[k] + i;   // in the run
+          if (el < 0 || el >= n) continue;
+          out[el] = whole ? chunk_value<T>(v[k], i)
+                          : as_float(x[run[k] + el]);   // the logits' end
+        }
+      }
+    }
   }
+}
 
-  // z_c of the fine pixel: the row blend at columns j, j-1, j+1, then the
-  // column blend; column taps of weight 0 are skipped
-  __device__ __forceinline__ float z(int c) const {
-    float r = wr.self * load_f(r_i + cj + c) + wr.prev * load_f(r_p + cj + c)
-              + wr.next * load_f(r_n + cj + c);
-    float out = wq.self * r;
-    if (wq.prev != 0.0f) {
-      float rp = wr.self * load_f(r_i + cp + c) + wr.prev * load_f(r_p + cp + c)
-                 + wr.next * load_f(r_n + cp + c);
-      out = out + wq.prev * rp;
+// z of the label's class at one fine pixel: the row blend (ph) of the
+// staged rows ra and rb at the pixel's coarse column and at its other
+// column tap (side, in floats), then the column blend (self, other), in
+// the forward's order. A label outside [0, C) selects no class (z = 0).
+__device__ __forceinline__ float label_z(const float* ra, const float* rb,
+                                         const PhaseTab& ph, float self,
+                                         float other, int side, int lbl,
+                                         int C) {
+  if (lbl < 0 || lbl >= C) return 0.0f;
+  const float mid = ph.self * ra[lbl] + ph.other * rb[lbl];
+  const float nb = ph.self * ra[lbl + side] + ph.other * rb[lbl + side];
+  return self * mid + other * nb;
+}
+
+__device__ __forceinline__ float dweight_of(float lse, float z, int lbl,
+                                            int ignore_index, float gs) {
+  return lbl == ignore_index ? 0.0f : (lse - z) * gs;
+}
+
+// kV consecutive fine pixels' labels and lse, read as one 16-byte vector
+// each when kV == 4
+template <int kV>
+struct FinePixels {
+  int lbl[kV];
+  float lse[kV];
+  __device__ __forceinline__ void load(const int32_t* __restrict__ labels,
+                                       const float* __restrict__ lse_g,
+                                       long long pix) {
+    if constexpr (kV == 4) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(labels + pix));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(lse_g + pix));
+      lbl[0] = a.x, lbl[1] = a.y, lbl[2] = a.z, lbl[3] = a.w;
+      lse[0] = b.x, lse[1] = b.y, lse[2] = b.z, lse[3] = b.w;
+    } else {
+      lbl[0] = __ldg(labels + pix);
+      lse[0] = __ldg(lse_g + pix);
     }
-    if (wq.next != 0.0f) {
-      float rn = wr.self * load_f(r_i + cn + c) + wr.prev * load_f(r_p + cn + c)
-                 + wr.next * load_f(r_n + cn + c);
-      out = out + wq.next * rn;
-    }
-    return out;
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// A unit is 4 fine pixels of one coarse column in one fine row (kF == 4:
+// the main paths' factors 4 x 4 and C = 19; labels and lse read and dwt
+// written as 16-byte vectors, W = 4w and x0 = 4*j0, so every unit is whole,
+// and the host checks the pointers' alignment), or one fine pixel (kF ==
+// 0: any factors and C). A thread takes units tid, tid + kDwThreads, ... in
+// chunks of kDwUnits; the first chunk's labels and lse are loaded before
+// the tile is staged, so the block waits on device memory once.
+template <typename T, int kC, int kF>
+__global__ void __launch_bounds__(kDwThreads)
 ce_dweight_kernel(const float* __restrict__ g, const T* __restrict__ x,
                   const int32_t* __restrict__ labels,
                   const float* __restrict__ lse, float* __restrict__ dwt,
-                  int B, int h, int w, int C, int fh, int fw,
-                  int ignore_index, float n_total) {
+                  long long nx, int h, int w, int C_arg, int fh_arg,
+                  int fw_arg, int ignore_index, float n_total, int ti,
+                  int tj) {
+  constexpr int kV = kF == 4 ? 4 : 1;   // fine pixels a unit
+  constexpr bool kRuns = kC > 0 && (kC & 1);   // class stride == C
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
+  const int C = kC > 0 ? kC : C_arg;
+  const int fh = kF > 0 ? kF : fh_arg, fw = kF > 0 ? kF : fw_arg;
+  const int cp = class_stride(C), xc = tj + 2, nrows = ti + 2;
+  // floats per staged row: stage_coarse_tile's rows, or with room to spare
+  const int rs = row_stride(xc, cp) + (kRuns ? kRowSlack : 0);
+  const TileOrigin o(h, w, ti, tj);
+  int* rowoff = (int*)(xs + nrows * rs);
+  PhaseTab* rtab = (PhaseTab*)(rowoff + nrows);
+  PhaseTab* ctab = rtab + fh;
   const int H = h * fh, W = w * fw;
-  const long long total = (long long)B * H * W;
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int lbl = labels[idx];
-  if (lbl == ignore_index) {
-    dwt[idx] = 0.0f;
-    return;
+  const int y0 = o.i0 * fh, x0 = o.j0 * fw;
+  // the tile's fine rows and columns that lie inside the image
+  const int nr = min(ti * fh, H - y0), nc = min(tj * fw, W - x0);
+  const int upr = nc / kV, n = nr * upr;   // units a fine row, in the tile
+  const long long row0 = (long long)o.b * H + y0;   // fine row of tile row 0
+  // the staged columns a column tap may read: stage_rows leaves the ones
+  // outside the image unset, stage_coarse_tile fills them with clamped
+  // copies
+  const int col_lo = kRuns ? max(0, 1 - o.j0) : 0;
+  const int col_hi = kRuns ? min(xc, w - o.j0 + 1) - 1 : xc - 1;
+
+  StridedDivmod it(threadIdx.x, kDwThreads, upr);   // (fine row, unit)
+  FinePixels<kV> px[kDwUnits];
+  int fr[kDwUnits], ur[kDwUnits];
+  auto fetch = [&](int base) {
+#pragma unroll
+    for (int k = 0; k < kDwUnits; ++k, it.next()) {
+      fr[k] = it.q;
+      ur[k] = it.r;
+      if (base + k * kDwThreads + (int)threadIdx.x < n)
+        px[k].load(labels, lse, (row0 + it.q) * W + x0 + it.r * kV);
+    }
+  };
+  fetch(0);
+  fill_phase_tab(rtab, fh);
+  fill_phase_tab(ctab, fw);
+  if constexpr (kRuns) {
+    stage_rows(xs, rowoff, x, nx, o.b, h, w, C, rs, o.i0 - 1, nrows,
+               o.j0 - 1, xc);
+  } else {
+    if ((int)threadIdx.x < nrows) rowoff[threadIdx.x] = 0;
+    stage_coarse_tile(xs, x, o.b, h, w, C, cp, o.i0 - 1, nrows, o.j0 - 1,
+                      xc);
   }
-  const int ox = (int)(idx % W), oy = (int)((idx / W) % H);
-  const int b = (int)(idx / ((long long)W * H));
-  const int i = oy / fh, j = ox / fw;
-  const Taps<T> t(x, b, i, oy - i * fh, j, ox - j * fw, h, w, C, fh, fw);
-  const float z_lbl = (lbl >= 0 && lbl < C) ? t.z(lbl) : 0.0f;
-  dwt[idx] = (lse[idx] - z_lbl) * (g[0] / n_total);
+  __pipeline_commit();
+  const float gs = __ldg(g) / n_total;
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  for (int base = 0;;) {
+#pragma unroll
+    for (int k = 0; k < kDwUnits; ++k) {
+      if (base + k * kDwThreads + (int)threadIdx.x >= n) continue;
+      const int t = fr[k] / fh;
+      const PhaseTab ph = rtab[fr[k] - t * fh];
+      const long long pix = (row0 + fr[k]) * W + x0 + ur[k] * kV;
+      // tile row t is staged row t+1; coarse column lj staged column lj+1,
+      // its column taps staged columns lj and lj+2, clamped to the image
+      const int lj = kF == 4 ? ur[k] : ur[k] / fw;
+      const int ra_row = t + 1, rb_row = t + 1 + ph.step;
+      const float* ra = xs + ra_row * rs + rowoff[ra_row] + (lj + 1) * cp;
+      const float* rb = xs + rb_row * rs + rowoff[rb_row] + (lj + 1) * cp;
+      const int left = (max(lj, col_lo) - lj - 1) * cp;
+      const int right = (min(lj + 2, col_hi) - lj - 1) * cp;
+      if constexpr (kF == 4) {
+        float d[kV];
+#pragma unroll
+        for (int q = 0; q < kV; ++q) {
+          const PhaseW pw = phase_weights(q, kF);   // constants
+          d[q] = dweight_of(px[k].lse[q],
+                            label_z(ra, rb, ph, pw.self, pw.prev + pw.next,
+                                    pw.prev > 0.0f ? left : right,
+                                    px[k].lbl[q], C),
+                            px[k].lbl[q], ignore_index, gs);
+        }
+        *reinterpret_cast<float4*>(dwt + pix) =
+            make_float4(d[0], d[1], d[2], d[3]);
+      } else {
+        const PhaseTab pc = ctab[ur[k] - lj * fw];
+        dwt[pix] = dweight_of(
+            px[k].lse[0], label_z(ra, rb, ph, pc.self, pc.other,
+                                  pc.step < 0 ? left : right, px[k].lbl[0],
+                                  C),
+            px[k].lbl[0], ignore_index, gs);
+      }
+    }
+    base += kDwUnits * kDwThreads;
+    if (base >= n) break;
+    fetch(base);
+  }
 }
 
 // ------------------------------------------------------------------- host
-
-long long blocks_for(long long n) { return (n + kThreads - 1) / kThreads; }
 
 Tile fwd_tile(int h, int w, int C, int fh, int fw) {
   return pick_tile(fwd_smem, max(1, 8 / fh), max(1, 128 / fw), h, w, C, fh,
@@ -607,10 +821,22 @@ template <typename T>
 int dweight(const float* g, const T* x, const int32_t* labels,
             const float* lse, float* out, int B, int h, int w, int C, int fh,
             int fw, int ignore_index, cudaStream_t stream) {
-  const long long total = (long long)B * h * fh * w * fw;
-  ce_dweight_kernel<T><<<(unsigned)blocks_for(total), kThreads, 0, stream>>>(
-      g, x, labels, lse, out, B, h, w, C, fh, fw, ignore_index,
-      (float)total);
+  const Tile t = pick_tile(dweight_smem, max(1, kDwFineRows / fh),
+                           max(1, 128 / fw), h, w, C, fh, fw);
+  const float n_total = (float)((long long)B * h * fh * w * fw);
+  // the main paths' 19 classes at factor 4 take 4 fine pixels a thread in
+  // 16-byte vectors (which need 16-byte aligned labels, lse and output);
+  // anything else a thread per fine pixel
+  const bool aligned = (((uintptr_t)x | (uintptr_t)labels | (uintptr_t)lse
+                         | (uintptr_t)out) & 15) == 0;
+  auto kernel = C == 19 && fh == 4 && fw == 4 && aligned
+                    ? ce_dweight_kernel<T, 19, 4>
+                    : ce_dweight_kernel<T, 0, 0>;
+  int err = allow_smem(kernel, t.smem);
+  if (err != 0) return err;
+  kernel<<<(unsigned)grid_of(t, B, h, w), kDwThreads, t.smem, stream>>>(
+      g, x, labels, lse, out, (long long)B * h * w * C, h, w, C, fh, fw,
+      ignore_index, n_total, t.ti, t.tj);
   return (int)cudaGetLastError();
 }
 

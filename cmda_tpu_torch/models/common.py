@@ -57,11 +57,23 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(x.dtype)
 
 
+def divide_by(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` with ``value`` rounded to ``x``'s dtype and a true
+    division, as JAX divides an array by a weakly typed scalar. (A Python
+    scalar divisor would be a reciprocal multiply on CUDA.)"""
+    return x / torch.full((), value, dtype=x.dtype, device=x.device)
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth with pre-drawn uniforms: ``u`` [B] keeps
     sample b iff ``u[b] < 1 - rate`` (a Bernoulli(1 - rate) draw, as
-    cmda_tpu.models.mit.MiTBlockScan._drop_path), scaling kept samples by
-    1 / (1 - rate). Without ``u`` it is the identity (eval)."""
+    cmda_tpu.models.mit.MiTBlockScan._drop_path), dividing kept samples by
+    1 - rate. Without ``u`` it is the identity (eval).
+
+    keep = 1 - rate is taken in float32 for the mask; the divisor is keep
+    rounded to the activation's dtype, as the JAX package divides (an
+    explicit cast in ``MiTBlockScan._drop_path``, weak typing in
+    ``common.DropPath``): in bfloat16, x / bf16(0.95), not x / 0.95."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -70,10 +82,9 @@ class DropPath(nn.Module):
     def forward(self, x, u: torch.Tensor | None = None):
         if u is None or self.rate == 0.0:
             return x
-        # 1 - rate rounded to float32, as the JAX package computes it
         keep = float(np.float32(1.0) - np.float32(self.rate))
         mask = (u < keep).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        return torch.where(mask, divide_by(x, keep), torch.zeros_like(x))
 
 
 class StreamBatchNorm(nn.BatchNorm2d):

@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import ConvBNReLU, Linear
+from .common import ConvBNReLU, Linear, divide_by
 
 
 @dataclass(frozen=True)
@@ -122,24 +122,28 @@ class DAFormerDecoder(nn.Module):
 
 
 class Classifier(nn.Conv2d):
-    """Dropout2d + 1x1 conv classifier (``cls_seg``), in float32 whatever
-    the compute dtype. Dropout2d takes its channel keep-mask ``keep``
-    [B, C] (bool, drawn with probability 1 - dropout_ratio by the caller's
-    generator) and scales the kept channels by 1 / (1 - dropout_ratio);
-    without a mask it is the identity (eval)."""
+    """Dropout2d + 1x1 conv classifier (``cls_seg``). Dropout2d takes its
+    channel keep-mask ``keep`` [B, C] (bool, drawn with probability
+    1 - dropout_ratio by the caller's generator) and divides the kept
+    channels by 1 - dropout_ratio; without a mask it is the identity
+    (eval). As in the JAX package, the dropout runs in the input's dtype
+    (in bfloat16, bf16(x / bf16(0.9))) and the conv in float32 after it."""
 
     def __init__(self, channels: int, num_classes: int,
                  dropout_ratio: float = 0.1):
         super().__init__(channels, num_classes, 1)
         self.dropout_ratio = dropout_ratio
 
+    def dropout(self, x, keep: torch.Tensor | None = None):
+        """The Dropout2d half of ``forward``, in ``x``'s dtype."""
+        if keep is None or self.dropout_ratio == 0:
+            return x
+        return torch.where(keep[:, :, None, None],
+                           divide_by(x, 1.0 - self.dropout_ratio),
+                           torch.zeros_like(x))
+
     def forward(self, x, keep: torch.Tensor | None = None):
-        x = x.float()
-        if keep is not None and self.dropout_ratio > 0:
-            x = torch.where(keep[:, :, None, None],
-                            x / (1.0 - self.dropout_ratio),
-                            torch.zeros_like(x))
-        return super().forward(x)
+        return super().forward(self.dropout(x, keep).float())
 
 
 class DAFormerFusionHead(DAFormerDecoder):

@@ -2,7 +2,7 @@
 device (mirrors tools/train.py of the JAX package).
 
     python -m cmda_tpu_torch.tools.train --config tiny --synthetic \\
-        --device cpu --max-iters 2
+        --device cpu --max-iters 2 [--dtype bfloat16]
     python -m cmda_tpu_torch.tools.train --config cs2dsec --synthetic \\
         --work-dir work_dirs/b5 --pretrained-backbone mit_b5.pth \\
         --cyclegan cityscapes_ICD_to_dsec_EN.pth
@@ -30,7 +30,7 @@ from ..utils.weights import (load_pretrained_backbone, load_torch_file,
 _UNPORTED = {
     **dict.fromkeys(("--source-root", "--target-root", "--target-txt",
                      "--val-txt", "--rcs-json-dir"), 4),
-    **dict.fromkeys(("--dtype", "--teacher-bf16"), 2),
+    "--teacher-bf16": 2,
     **dict.fromkeys(("--multi-host", "--coordinator", "--data-parallel",
                      "--shard-opt-state", "--tensor-parallel"), 7),
     "--imnet": 5,
@@ -75,6 +75,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--cyclegan", default=None,
                    help="frozen day-events generator state_dict "
                         "(reference dacs.py:96-103)")
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                   help="model compute dtype (parameters stay float32)")
     p.add_argument("--device", default="cuda")
     args, extra = p.parse_known_args(argv)
     for token in extra:
@@ -95,6 +97,8 @@ def build_config(args) -> C.RunConfig:
     cfg = C.PRESETS[args.config]()
     if args.seed is not None:
         cfg = C.replace(cfg, seed=args.seed)
+    if args.dtype:
+        cfg = C.replace(cfg, dtype=args.dtype)
     if args.batch_size:
         cfg = C.replace(cfg, data=C.replace(cfg.data,
                                             batch_size=args.batch_size))

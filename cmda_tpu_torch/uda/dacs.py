@@ -34,6 +34,14 @@ decodes it on the device first, as the JAX step does inside its jit.
 grids, with the draws of the step about to run; it applies the EMA to a
 copy of the teacher, so it leaves the state as it was.
 
+``cfg.dtype='bfloat16'`` is the JAX package's bfloat16 training (its
+``bench.py`` step): float32 parameters, EMA, AdamW state and gradients;
+the student and the teacher compute in bfloat16 with the qk softmax, the
+norm statistics and the classifier in float32 (``models/common.py``), so
+the stream logits, the losses and the pseudo-labels are float32 as there;
+the CycleGAN, ClassMix, jitter, blur and the mixed ISR work on the float32
+images.
+
 Only the flagship's flags are ported; any other train type or option
 raises ``NotImplementedError`` naming it.
 """
@@ -147,9 +155,8 @@ class DACSTrainer:
                                           "not ported")
         if cfg.uda.shift_type == "all":
             raise NotImplementedError("uda.shift_type='all' is not ported")
-        if cfg.dtype != "float32":
-            raise NotImplementedError(f"dtype={cfg.dtype!r} training is not "
-                                      "ported")
+        if cfg.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"dtype={cfg.dtype!r}")
         if cfg.model.head_batched_train:
             raise NotImplementedError("model.head_batched_train is not "
                                       "ported")

@@ -341,12 +341,14 @@ def load_jax_train_state(state, jax_state: dict):
             p = params[k]
             if id(p) not in parts[part]:
                 raise KeyError(f"{k} is not in the {part!r} group")
+            # copies: AdamW updates its moments in place, which must not
+            # write into the caller's arrays
             state.optimizer.state[p] = {
                 "step": torch.tensor(float(opt["count"]), dtype=torch.float32),
-                "exp_avg": torch.from_numpy(np.ascontiguousarray(mu[k])).to(
-                    p.device, p.dtype),
-                "exp_avg_sq": torch.from_numpy(np.ascontiguousarray(nu[k])).to(
-                    p.device, p.dtype)}
+                "exp_avg": torch.tensor(np.asarray(mu[k]), device=p.device,
+                                        dtype=p.dtype),
+                "exp_avg_sq": torch.tensor(np.asarray(nu[k]), device=p.device,
+                                           dtype=p.dtype)}
             seen.add(k)
     if seen != set(params):
         raise KeyError(f"AdamW moments missing for "

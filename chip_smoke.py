@@ -103,10 +103,6 @@ ISR_OPS_PER_PIXEL = 2 * (2 * 3 + 1 + 1 + 2 + 2 * 3) + 3
 # blends (8)
 CE_FWD_OPS_PER_PIXEL_CLASS = 13
 CE_DX_OPS_PER_PIXEL_CLASS = 25
-# operations per fine pixel of the dweight, given the forward's lse: the
-# label's class through two row blends and a column blend (9), then
-# (lse - z) * g/N (2)
-CE_DWEIGHT_OPS_PER_PIXEL = 11
 ARGMAX_TOL = 1e-5       # prob, absolute; labels may differ only at ties
 ISR_TOL = 1e-5          # absolute, values in [-1, 1]
 # fused CE: the loss to 1e-5 relative; dx and dweight, which are O(1/N),
@@ -621,9 +617,11 @@ def ce_bounds(shape, size, elt):
         # logits, labels, weights in; dx out
         "dx": bound(2 * logits_b + 2 * pix_b,
                     n_fine * c * CE_DX_OPS_PER_PIXEL_CLASS),
-        # logits, labels and the forward's lse in; dweight out
-        "dweight": bound(logits_b + 3 * pix_b,
-                         n_fine * CE_DWEIGHT_OPS_PER_PIXEL),
+        # logits, labels in; dweight out. The function's own bytes: it
+        # could recompute lse from the logits it reads (the forward's
+        # operations), so the lse the kernel is handed is not counted
+        "dweight": bound(logits_b + 2 * pix_b,
+                         n_fine * c * CE_FWD_OPS_PER_PIXEL_CLASS),
     }
 
 

@@ -75,28 +75,25 @@
 //    _ce_dw_kernel):
 //       dwt[b,y,x] = (lse - z_label) * g / (B*H*W), 0 where ignored,
 //    with lse from the forward, so a fine pixel needs only its label's
-//    class: two 2-tap row blends and a column blend. Bound: bytes (logits,
-//    labels, lse and dwt, ~8.8 MB at the flagship, ~2.6 us); ~11 operations
-//    per fine pixel are far below it. The first design (one thread per fine
+//    class: two 2-tap row blends and a column blend. Bound: bytes (logits
+//    and labels in, dwt out, ~6.7 MB at the flagship, ~2.0 us; the
+//    function could recompute lse from the logits it reads, so the lse this
+//    kernel reads is not counted). The first design (one thread per fine
 //    pixel) paid 64-bit index divisions and up to nine scattered 4-byte
 //    gathers of the label's class per pixel, each its own sector, with no
 //    reuse between the 16 fine pixels that share a coarse tap. Design: a
 //    block owns 4 x 32 coarse pixels at factor 4 (16 x 128 fine pixels, 256
 //    blocks at the flagship, all resident at once) and stages coarse rows
-//    i0-1 .. i0+4 and columns j0-1 .. j0+32, every class, in shared memory.
-//    At C = 19 (odd, so a staged row is the coarse row's run as it lies in
-//    device memory) the run is read in aligned 16-byte chunks: float32 by
-//    16-byte cp.async, bfloat16 through registers; column taps outside the
-//    image are clamped when read, not copied. Each thread loads the labels
-//    and lse of its 2 units (a unit: the 4 fine pixels of one coarse column
-//    in one fine row) as 16-byte vectors before the tile is staged, so the
-//    block waits on device memory once, then reads 4 shared-memory words a
-//    pixel and writes the unit's 4 dweights as one vector. Any other C or
-//    factor (or an unaligned pointer) stages element by element and takes a
-//    thread per fine pixel. Measured against the design's variants on the
-//    card (PERF.md §6): 2 coarse rows a tile (more halo), 512 threads,
-//    4-byte copies, splitting the wait in two and a barrier to fill the
-//    halo columns were each slower.
+//    i0-1 .. i0+4 and columns j0-1 .. j0+32, every class, in shared memory
+//    by stage_coarse_tile, as the forward and dx do. At C = 19 and factor 4
+//    each thread loads the labels and lse of its 2 units (a unit: the 4
+//    fine pixels of one coarse column in one fine row) as 16-byte vectors
+//    before the tile is staged, so the block waits on device memory once,
+//    then reads 4 shared-memory words a pixel and writes the unit's 4
+//    dweights as one vector. Any other C or factor (or an unaligned
+//    pointer) takes a thread per fine pixel. Measured against the design's
+//    variants on the card (PERF.md section 6): 2 coarse rows a tile (more
+//    halo), 512 threads and splitting the wait in two were each slower.
 //
 // Tensor cores are not used: the blends are 2-tap stencils, so as products
 // with a dense interpolation matrix their reduction depth (TI+2 coarse rows)
@@ -517,111 +514,12 @@ constexpr int kDwThreads = 256;
 constexpr int kDwFineRows = 16;
 // Units a thread has in flight at once (their labels and lse in registers).
 constexpr int kDwUnits = 2;
-// 16-byte chunks of the tile a thread has in flight at once.
-constexpr int kStageChunks = 4;
-// Floats a staged row has beyond its columns: room for a row that starts up
-// to 7 floats in (16-byte copies keep their source's alignment) and for a
-// last copy that runs 3 floats past the row's end.
-constexpr int kRowSlack = 12;
 
-// Shared memory: the coarse tile (ti+2) x (tj+2) x cp in padded rows, each
-// row's offset, the row and column phase tables.
+// Shared memory: the coarse tile (ti+2) x (tj+2) x cp in padded rows, the
+// row and column phase tables.
 size_t dweight_smem(int ti, int tj, int C, int fh, int fw) {
-  return (size_t)(ti + 2) * (row_stride(tj + 2, class_stride(C)) + kRowSlack)
-             * 4
-         + (size_t)(ti + 2) * sizeof(int) + (size_t)(fh + fw) * sizeof(PhaseTab);
-}
-
-// Value i of a 16-byte chunk of T held in registers (i known when compiled).
-template <typename T>
-__device__ __forceinline__ float chunk_value(const uint4& v, int i) {
-  constexpr int kPerWord = 4 / (int)sizeof(T);
-  const unsigned int word = i / kPerWord == 0 ? v.x
-                            : i / kPerWord == 1 ? v.y
-                            : i / kPerWord == 2 ? v.z : v.w;
-  if constexpr (sizeof(T) == 4) return __uint_as_float(word);
-  // a bfloat16 is the top half of a float32
-  return __uint_as_float(i % 2 == 0 ? word << 16 : word & 0xffff0000u);
-}
-
-__device__ __forceinline__ float as_float(float v) { return v; }
-__device__ __forceinline__ float as_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// The tile when the class stride is C itself (C odd): a staged row is then
-// the coarse row's run of in-image columns as it lies in device memory, and
-// is read in 16-byte chunks at 16-byte aligned addresses (x must be 16-byte
-// aligned), a few per thread instead of one copy per element. float32 goes
-// by 16-byte cp.async, which keeps the source's alignment in shared memory:
-// row r's element 0 lands rowoff[r] = 4 + ((s_r - d0) mod 4) floats into
-// its row; a copy that would reach past the logits' end (nx elements) goes
-// element by element. bfloat16 goes through registers (rowoff 0). Staged
-// columns outside the image (the clamped halo, and a cut tile's columns
-// past the edge) hold whatever the copies left there: the caller clamps its
-// column taps to the image instead.
-template <typename T>
-__device__ __forceinline__ void stage_rows(
-    float* dst, int* rowoff, const T* __restrict__ x, long long nx, int b,
-    int h, int w, int C, int rs, int r0, int nrows, int c0, int ncols) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr bool kAsync = sizeof(T) == 4;
-  const int cs = max(c0, 0), ce = min(c0 + ncols, w);   // in-image columns
-  const int n = (ce - cs) * C, d0 = (cs - c0) * C;   // a row's run, its offset
-  const int nch = n / V + 2;   // chunks a row's run touches, at most
-  // staged row r is coarse row r0 + r, clamped to the image
-  auto run_start = [&](int r) {
-    return (((long long)b * h + clampi(r0 + r, 0, h - 1)) * w + cs) * C;
-  };
-  if ((int)threadIdx.x < nrows)
-    rowoff[threadIdx.x] =
-        kAsync ? 4 + (int)((run_start(threadIdx.x) - d0) & 3) : 0;
-  const int total = nrows * nch;
-  StridedDivmod it(threadIdx.x, kDwThreads, nch);   // (row, chunk)
-  for (int base = 0; base < total; base += kStageChunks * kDwThreads) {
-    uint4 v[kStageChunks];
-    int off[kStageChunks], row[kStageChunks];   // chunk start - run start
-    long long run[kStageChunks];
-#pragma unroll
-    for (int k = 0; k < kStageChunks; ++k, it.next()) {
-      const int e = base + k * kDwThreads + threadIdx.x;
-      row[k] = -1;
-      if (e >= total) continue;
-      const int r = it.q, c = it.r;
-      const long long s = run_start(r);
-      const long long a = (s & ~(long long)(V - 1)) + (long long)c * V;
-      if (a >= s + n) continue;
-      row[k] = r;
-      run[k] = s;
-      off[k] = (int)(a - s);
-      if constexpr (kAsync) {
-        float* out = dst + r * rs + 4 + (int)((s - d0) & 3) + d0 + off[k];
-        if (a + V <= nx) {
-          __pipeline_memcpy_async(out, x + a, 16);
-        } else {   // the logits' last chunk
-          for (int i = 0; i < V && a + i < nx; ++i)
-            __pipeline_memcpy_async(out + i, x + a + i, 4);
-        }
-      } else if (a + V <= nx) {
-        v[k] = __ldg(reinterpret_cast<const uint4*>(x + a));
-      }
-    }
-    if constexpr (!kAsync) {
-#pragma unroll
-      for (int k = 0; k < kStageChunks; ++k) {
-        if (row[k] < 0) continue;
-        const bool whole = run[k] + off[k] + V <= nx;
-        float* out = dst + row[k] * rs + d0;   // element 0 of the run
-#pragma unroll
-        for (int i = 0; i < V; ++i) {
-          const int el = off[k] + i;   // in the run
-          if (el < 0 || el >= n) continue;
-          out[el] = whole ? chunk_value<T>(v[k], i)
-                          : as_float(x[run[k] + el]);   // the logits' end
-        }
-      }
-    }
-  }
+  return (size_t)(ti + 2) * row_stride(tj + 2, class_stride(C)) * 4
+         + (size_t)(fh + fw) * sizeof(PhaseTab);
 }
 
 // z of the label's class at one fine pixel: the row blend (ph) of the
@@ -676,21 +574,17 @@ __global__ void __launch_bounds__(kDwThreads)
 ce_dweight_kernel(const float* __restrict__ g, const T* __restrict__ x,
                   const int32_t* __restrict__ labels,
                   const float* __restrict__ lse, float* __restrict__ dwt,
-                  long long nx, int h, int w, int C_arg, int fh_arg,
-                  int fw_arg, int ignore_index, float n_total, int ti,
-                  int tj) {
+                  int h, int w, int C_arg, int fh_arg, int fw_arg,
+                  int ignore_index, float n_total, int ti, int tj) {
   constexpr int kV = kF == 4 ? 4 : 1;   // fine pixels a unit
-  constexpr bool kRuns = kC > 0 && (kC & 1);   // class stride == C
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);
   const int C = kC > 0 ? kC : C_arg;
   const int fh = kF > 0 ? kF : fh_arg, fw = kF > 0 ? kF : fw_arg;
   const int cp = class_stride(C), xc = tj + 2, nrows = ti + 2;
-  // floats per staged row: stage_coarse_tile's rows, or with room to spare
-  const int rs = row_stride(xc, cp) + (kRuns ? kRowSlack : 0);
+  const int rs = row_stride(xc, cp);
   const TileOrigin o(h, w, ti, tj);
-  int* rowoff = (int*)(xs + nrows * rs);
-  PhaseTab* rtab = (PhaseTab*)(rowoff + nrows);
+  PhaseTab* rtab = (PhaseTab*)(xs + nrows * rs);
   PhaseTab* ctab = rtab + fh;
   const int H = h * fh, W = w * fw;
   const int y0 = o.i0 * fh, x0 = o.j0 * fw;
@@ -698,11 +592,6 @@ ce_dweight_kernel(const float* __restrict__ g, const T* __restrict__ x,
   const int nr = min(ti * fh, H - y0), nc = min(tj * fw, W - x0);
   const int upr = nc / kV, n = nr * upr;   // units a fine row, in the tile
   const long long row0 = (long long)o.b * H + y0;   // fine row of tile row 0
-  // the staged columns a column tap may read: stage_rows leaves the ones
-  // outside the image unset, stage_coarse_tile fills them with clamped
-  // copies
-  const int col_lo = kRuns ? max(0, 1 - o.j0) : 0;
-  const int col_hi = kRuns ? min(xc, w - o.j0 + 1) - 1 : xc - 1;
 
   StridedDivmod it(threadIdx.x, kDwThreads, upr);   // (fine row, unit)
   FinePixels<kV> px[kDwUnits];
@@ -719,14 +608,7 @@ ce_dweight_kernel(const float* __restrict__ g, const T* __restrict__ x,
   fetch(0);
   fill_phase_tab(rtab, fh);
   fill_phase_tab(ctab, fw);
-  if constexpr (kRuns) {
-    stage_rows(xs, rowoff, x, nx, o.b, h, w, C, rs, o.i0 - 1, nrows,
-               o.j0 - 1, xc);
-  } else {
-    if ((int)threadIdx.x < nrows) rowoff[threadIdx.x] = 0;
-    stage_coarse_tile(xs, x, o.b, h, w, C, cp, o.i0 - 1, nrows, o.j0 - 1,
-                      xc);
-  }
+  stage_coarse_tile(xs, x, o.b, h, w, C, cp, o.i0 - 1, nrows, o.j0 - 1, xc);
   __pipeline_commit();
   const float gs = __ldg(g) / n_total;
   __pipeline_wait_prior(0);
@@ -739,14 +621,12 @@ ce_dweight_kernel(const float* __restrict__ g, const T* __restrict__ x,
       const int t = fr[k] / fh;
       const PhaseTab ph = rtab[fr[k] - t * fh];
       const long long pix = (row0 + fr[k]) * W + x0 + ur[k] * kV;
-      // tile row t is staged row t+1; coarse column lj staged column lj+1,
-      // its column taps staged columns lj and lj+2, clamped to the image
+      // tile row t is staged row t+1 (its row tap t+1+step); coarse column
+      // lj staged column lj+1, its column taps staged columns lj and lj+2
+      // (clamped copies at the image's edge)
       const int lj = kF == 4 ? ur[k] : ur[k] / fw;
-      const int ra_row = t + 1, rb_row = t + 1 + ph.step;
-      const float* ra = xs + ra_row * rs + rowoff[ra_row] + (lj + 1) * cp;
-      const float* rb = xs + rb_row * rs + rowoff[rb_row] + (lj + 1) * cp;
-      const int left = (max(lj, col_lo) - lj - 1) * cp;
-      const int right = (min(lj + 2, col_hi) - lj - 1) * cp;
+      const float* ra = xs + (t + 1) * rs + (lj + 1) * cp;
+      const float* rb = xs + (t + 1 + ph.step) * rs + (lj + 1) * cp;
       if constexpr (kF == 4) {
         float d[kV];
 #pragma unroll
@@ -754,8 +634,8 @@ ce_dweight_kernel(const float* __restrict__ g, const T* __restrict__ x,
           const PhaseW pw = phase_weights(q, kF);   // constants
           d[q] = dweight_of(px[k].lse[q],
                             label_z(ra, rb, ph, pw.self, pw.prev + pw.next,
-                                    pw.prev > 0.0f ? left : right,
-                                    px[k].lbl[q], C),
+                                    pw.prev > 0.0f ? -cp : cp, px[k].lbl[q],
+                                    C),
                             px[k].lbl[q], ignore_index, gs);
         }
         *reinterpret_cast<float4*>(dwt + pix) =
@@ -764,8 +644,7 @@ ce_dweight_kernel(const float* __restrict__ g, const T* __restrict__ x,
         const PhaseTab pc = ctab[ur[k] - lj * fw];
         dwt[pix] = dweight_of(
             px[k].lse[0], label_z(ra, rb, ph, pc.self, pc.other,
-                                  pc.step < 0 ? left : right, px[k].lbl[0],
-                                  C),
+                                  pc.step * cp, px[k].lbl[0], C),
             px[k].lbl[0], ignore_index, gs);
       }
     }
@@ -827,15 +706,15 @@ int dweight(const float* g, const T* x, const int32_t* labels,
   // the main paths' 19 classes at factor 4 take 4 fine pixels a thread in
   // 16-byte vectors (which need 16-byte aligned labels, lse and output);
   // anything else a thread per fine pixel
-  const bool aligned = (((uintptr_t)x | (uintptr_t)labels | (uintptr_t)lse
-                         | (uintptr_t)out) & 15) == 0;
+  const bool aligned =
+      (((uintptr_t)labels | (uintptr_t)lse | (uintptr_t)out) & 15) == 0;
   auto kernel = C == 19 && fh == 4 && fw == 4 && aligned
                     ? ce_dweight_kernel<T, 19, 4>
                     : ce_dweight_kernel<T, 0, 0>;
   int err = allow_smem(kernel, t.smem);
   if (err != 0) return err;
   kernel<<<(unsigned)grid_of(t, B, h, w), kDwThreads, t.smem, stream>>>(
-      g, x, labels, lse, out, (long long)B * h * w * C, h, w, C, fh, fw,
+      g, x, labels, lse, out, h, w, C, fh, fw,
       ignore_index, n_total, t.ti, t.tj);
   return (int)cudaGetLastError();
 }

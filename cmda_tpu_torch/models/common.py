@@ -57,11 +57,17 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(x.dtype)
 
 
-def divide_by(x: torch.Tensor, value: float) -> torch.Tensor:
+def divide_by(x: torch.Tensor, value: float, cache: dict) -> torch.Tensor:
     """``x / value`` with ``value`` rounded to ``x``'s dtype and a true
     division, as JAX divides an array by a weakly typed scalar. (A Python
-    scalar divisor would be a reciprocal multiply on CUDA.)"""
-    return x / torch.full((), value, dtype=x.dtype, device=x.device)
+    scalar divisor would be a reciprocal multiply on CUDA.) ``cache``, the
+    calling module's dict, keeps the 0-d divisor per value, dtype and
+    device, so a call launches only the division."""
+    key = (value, x.dtype, x.device)
+    d = cache.get(key)
+    if d is None:
+        d = cache[key] = torch.full((), value, dtype=x.dtype, device=x.device)
+    return x / d
 
 
 class DropPath(nn.Module):
@@ -78,13 +84,15 @@ class DropPath(nn.Module):
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self._divisors = {}
 
     def forward(self, x, u: torch.Tensor | None = None):
         if u is None or self.rate == 0.0:
             return x
         keep = float(np.float32(1.0) - np.float32(self.rate))
         mask = (u < keep).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
-        return torch.where(mask, divide_by(x, keep), torch.zeros_like(x))
+        return torch.where(mask, divide_by(x, keep, self._divisors),
+                           torch.zeros_like(x))
 
 
 class StreamBatchNorm(nn.BatchNorm2d):

@@ -133,13 +133,15 @@ class Classifier(nn.Conv2d):
                  dropout_ratio: float = 0.1):
         super().__init__(channels, num_classes, 1)
         self.dropout_ratio = dropout_ratio
+        self._divisors = {}
 
     def dropout(self, x, keep: torch.Tensor | None = None):
         """The Dropout2d half of ``forward``, in ``x``'s dtype."""
         if keep is None or self.dropout_ratio == 0:
             return x
         return torch.where(keep[:, :, None, None],
-                           divide_by(x, 1.0 - self.dropout_ratio),
+                           divide_by(x, 1.0 - self.dropout_ratio,
+                                     self._divisors),
                            torch.zeros_like(x))
 
     def forward(self, x, keep: torch.Tensor | None = None):

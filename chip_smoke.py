@@ -54,7 +54,9 @@ Phases, any failure exits non-zero:
      through the kernels against through their plain versions on the card,
      and the b5 step at 512x512 batch 8 (launches, the dtype of the logits
      the CE kernels take, step time, samples/s, peak memory, sections,
-     busy share);
+     busy share), and the same b8 step with ``bench.py``'s
+     ``--teacher-bf16 --moments bfloat16`` (the AdamW state's and the
+     teacher copy's bytes beside the step's);
   7. the training run: ``cmda_tpu_torch.tools.train.main`` in-process on
      the same preset, synthetic data, bf16 wire feed, device prefetch 1,
      4 loader threads, 8 iterations logged each, a checkpoint, an
@@ -66,7 +68,16 @@ Phases, any failure exits non-zero:
      served by ``init_segmentor``; the steady iteration time, data_time
      and its host parts, checkpoint bytes and seconds, evaluation seconds
      and the device-busy share of 3 profiled iterations;
-  8. one JSON line of per-kernel results, the nvidia-smi line, and last
+  8. the other train types: the micro ``cs2dz`` and ``cs2dsec_image+events``
+     (with grad_clip) steps through the kernels against their plain
+     versions and the CPU, each run again with deterministic cuDNN (the
+     forward bitwise); then the DarkZurich preset (cs2dz, MiT-b5, 512x512,
+     batch 2, float32) as in 6 (launches CE 6 / dx 6 / argmax 3 / ISR 1 a
+     step) and as in 7 through ``--config cs2dz``; the kernels' cs2dz
+     points (the CE with the pseudo weight's cropped rows, the ISR
+     rightdown with the DarkZurich parameters) are held and timed in 3 and
+     5;
+  9. one JSON line of per-kernel results, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -300,6 +311,10 @@ ISR_POINTS = {
     "b8": (8, 440, 640),             # timed by earlier checkouts
     "step_b8": (8, 512, 512),        # the bfloat16 step's, at batch 8
 }
+# the cs2dz step's mixed ISR: [2, 512, 512], every image in the preset's
+# fixed direction (rightdown, index 2) with its uda.isr_params (the
+# DarkZurich values: range 1-100, threshold 0.01, clip 0.1, shift 3)
+ISR_DZ_STEP = (2, 512, 512)
 # the points whose numbers the kernels line gives at its top level: those
 # earlier runs reported there
 ARGMAX_REPORTED_POINT = "serving_b8_prob"
@@ -370,6 +385,11 @@ def port_kernel_times(earlier=False):
     cases = {"flagship": (x, lbl, wgt)}
     cases["step_b8"] = _ce_case(gen, *CE_POINTS["step_b8"], torch.float32,
                                 dev)
+    cases["dz_step"] = _dz_ce_case(gen, dev)
+    gray, dirs, kw_dz = _dz_isr_case(gen, dev)
+    calls["isr_dz_step"] = (
+        lambda: batched_isr(gray, dirs, **kw_dz), names("batched_isr"),
+        (gray, dirs, kw_dz))
     for point, (xp, lp, wp) in cases.items():
         if point != "flagship":
             _, lse_p = fused_resize_ce_forward(xp, lp, wp)
@@ -381,6 +401,8 @@ def port_kernel_times(earlier=False):
                     g, xp, lp, wp, lse_p), names("fused_resize_ce_dx"),
                 (g, xp, lp, wp, lse_p))
         for dtype in (torch.float32, torch.bfloat16):
+            if point == "dz_step":   # no dweight on a step's path
+                break
             xd = xp.to(dtype)
             _, lse_d = fused_resize_ce_forward(xd, lp, wp)
             calls[f"ce_dweight_{point}_{_dtype_tag(dtype)}"] = (
@@ -525,11 +547,19 @@ def phase_isr(gen, times):
     cases += [(f"w_shift{shift}+1", (2, 440, shift + 1), preset, shift)
               for preset in presets for shift in (1, 2, 3)]
     cases += [("h1", (2, 1, 640), preset, 1) for preset in presets]
+    # the cs2dz step's: every image rightdown with the preset's
+    # uda.isr_params, as _dz_isr_case draws it
+    cases.append(("dz_step", ISR_DZ_STEP, "cs2dz_uda", None))
     worst = 0.0
     for name, (b, h, w), preset, shift in cases:
-        gray = _smooth_gray(gen, b, h, w, dev)
-        dirs = (torch.arange(b, dtype=torch.int32, device=dev) + shift) % 4
-        kw = _isr_kw(presets[preset], shift)
+        if name == "dz_step":
+            gray, dirs, kw = _dz_isr_case(gen, dev)
+            shift = kw["shift_pixel"]
+        else:
+            gray = _smooth_gray(gen, b, h, w, dev)
+            dirs = (torch.arange(b, dtype=torch.int32, device=dev)
+                    + shift) % 4
+            kw = _isr_kw(presets[preset], shift)
         out = _bitwise_repeat(lambda: batched_isr(gray, dirs, **kw),
                               f"isr {name} {preset} shift {shift}")
         ref = batched_isr_plain(gray, dirs, **kw)
@@ -551,7 +581,7 @@ def phase_isr(gen, times):
         worst = max(worst, err)
 
     points = {}
-    for name, (b, h, w) in ISR_POINTS.items():
+    for name, (b, h, w) in {**ISR_POINTS, "dz_step": ISR_DZ_STEP}.items():
         t = times[f"isr_{name}"]
         gray, dirs, kw = t["args"]
         bound_ms, bound_by = isr_bound(b, h, w)
@@ -601,7 +631,38 @@ CE_FLAGSHIP = ((2, 128, 128, 19), (512, 512))
 # at batch 2 and the bfloat16 step's at batch 8 (float32 logits there too:
 # the classifier runs in float32)
 CE_POINTS = {"flagship": CE_FLAGSHIP,
-             "step_b8": ((8, 128, 128, 19), (512, 512))}
+             "step_b8": ((8, 128, 128, 19), (512, 512)),
+             "dz_step": CE_FLAGSHIP}
+# the cs2dz step's mixed loss: the pixel weight is 1 on the pasted source
+# classes and the pseudo weight elsewhere, which is its confidence ratio
+# with rows 0-14 and the last 120 zeroed (uda.pseudo_weight_ignore_top /
+# _bottom)
+DZ_IGNORE_TOP, DZ_IGNORE_BOTTOM = 15, 120
+
+
+def _dz_ce_case(gen, dev):
+    """Logits and labels as ``_ce_case`` at CE_FLAGSHIP, and the cs2dz
+    mixed pixel weight: 1 on a random half of the pixels, 0.6 on the rest
+    except the cropped rows, 0 there."""
+    import torch
+    x, lbl, _ = _ce_case(gen, *CE_FLAGSHIP, torch.float32, dev)
+    pasted = torch.rand(lbl.shape, generator=gen, device=dev) < 0.5
+    pseudo = torch.full(lbl.shape, 0.6, device=dev)
+    pseudo[:, :DZ_IGNORE_TOP] = 0.0
+    pseudo[:, -DZ_IGNORE_BOTTOM:] = 0.0
+    return x, lbl, torch.where(pasted, torch.ones_like(pseudo), pseudo)
+
+
+def _dz_isr_case(gen, dev):
+    """(gray, dirs, kw) of the cs2dz step's mixed ISR (ISR_DZ_STEP)."""
+    import torch
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.ops.isr import SHIFT_DIRECTIONS
+    cfg = C.cs2dz_image_rawisr_b5()
+    b, h, w = ISR_DZ_STEP
+    dirs = torch.full((b,), SHIFT_DIRECTIONS.index(cfg.uda.shift_type),
+                      dtype=torch.int32, device=dev)
+    return _smooth_gray(gen, b, h, w, dev), dirs, _isr_kw(cfg.uda.isr_params)
 
 
 def ce_bounds(shape, size, elt):
@@ -645,6 +706,8 @@ def phase_ce(gen, times):
         "flagship_bf16": (*flagship, bf16, True, 0.05),
         "step_b8_f32": (*b8, f32, True, 0.05),
         "step_b8_bf16": (*b8, bf16, True, 0.05),
+        # the cs2dz mixed loss: cropped rows of zero weight (_dz_ce_case)
+        "dz_step": (*flagship, f32, True, 0.05),
         "nonsquare_3x4": ((2, 32, 40, 19), (96, 160), f32, True, 0.05),
         "all_ignored": ((2, 32, 40, 19), (128, 160), f32, True, 1.0),
         "no_weight": (*flagship, f32, False, 0.05),
@@ -667,8 +730,11 @@ def phase_ce(gen, times):
     }
     worst = {"loss": 0.0, "dx": 0.0, "dweight": 0.0}
     for name, (shape, size, dtype, weighted, ignored) in cases.items():
-        x, lbl, wgt = _ce_case(gen, shape, size, dtype, dev,
-                               weighted=weighted, ignored=ignored)
+        if name == "dz_step":
+            x, lbl, wgt = _dz_ce_case(gen, dev)
+        else:
+            x, lbl, wgt = _ce_case(gen, shape, size, dtype, dev,
+                                   weighted=weighted, ignored=ignored)
         loss, dx, dw = _grads(fused_resize_ce, x, lbl, wgt)
         again = _grads(fused_resize_ce, x, lbl, wgt)
         if not all(torch.equal(a, b) for a, b in zip((loss, dx, dw), again)
@@ -756,6 +822,8 @@ def phase_ce(gen, times):
                     device_ms_cold_l2=t["device_ms_cold_l2"],
                     traces_cold_l2=t["traces_cold_l2"])
         for dtype in (f32, bf16):
+            if point == "dz_step":   # no dweight on a step's path
+                break
             t = times[f"ce_dweight_{point}_{_dtype_tag(dtype)}"]
             xd = t["args"][1]
             bd = ce_bounds(shape, size, xd.element_size())["dweight"]
@@ -936,6 +1004,16 @@ TRAIN_COUNTED = ("fused_resize_ce", "fused_resize_ce_dx",
 TRAIN_LAUNCHES_PER_STEP = {"fused_resize_ce": 8, "fused_resize_ce_dx": 8,
                            "fused_resize_ce_dweight": 0,
                            "fused_resize_argmax": 3, "batched_isr": 1}
+# the single-batch train types (cs2dz_image+raw-isr, cs2dsec_image+events):
+# 3 streams (image, events, fusion) x (source, mixed)
+TRAIN_LAUNCHES_PER_STEP_3 = {**TRAIN_LAUNCHES_PER_STEP,
+                             "fused_resize_ce": 6, "fused_resize_ce_dx": 6}
+
+
+def step_launches(trainer):
+    """The launches per step of ``trainer``'s train type."""
+    return (TRAIN_LAUNCHES_PER_STEP if trainer.together
+            else TRAIN_LAUNCHES_PER_STEP_3)
 # the micro step at 64x64 (at 32x32 the micro model's dilated ASPP
 # BatchNorm amplifies float32 noise) three ways: on the card through the
 # kernels, on the card through their plain versions, and on the CPU.
@@ -981,9 +1059,9 @@ def _counted_step(trainer, state, batch, draws=None):
     state, logs = trainer.train_step(state, batch, draws)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
-    if launches != TRAIN_LAUNCHES_PER_STEP:
+    if launches != step_launches(trainer):
         fail(f"train step launches {launches}, expected "
-             f"{TRAIN_LAUNCHES_PER_STEP}")
+             f"{step_launches(trainer)}")
     logs = {k: float(v) for k, v in logs.items()}
     bad = [k for k, v in logs.items() if not math.isfinite(v)]
     if bad:
@@ -1029,7 +1107,8 @@ def _check_logs(logs, ref, what):
 def _check_moments(state, ref_state, rtol, what):
     """AdamW's first moments of ``state`` against ``ref_state``'s, each
     tensor's largest difference within ``rtol`` of the largest first moment
-    over all tensors; returns that relative difference."""
+    over all tensors (``rtol`` None: reported only); returns that relative
+    difference."""
     names = {p: k for k, p in ref_state.model.named_parameters()}
     got, ref, keys = [], [], []
     for g, g_ref in zip(state.optimizer.param_groups,
@@ -1045,33 +1124,80 @@ def _check_moments(state, ref_state, rtol, what):
           f"largest max|ref| {scale:.3g}; the 3 largest differences: "
           + "; ".join(f"{k} {e:.3g} (its max|ref| {sc:.3g})"
                       for e, sc, k in diff[:3]), flush=True)
-    bad = [k for e, _, k in diff if not e <= rtol * scale]
+    bad = [k for e, _, k in diff if rtol is not None and not e <= rtol * scale]
     if bad:
         fail(f"train micro, {what}: AdamW first moments differ in {bad}")
     return diff[0][0] / scale
 
 
-def phase_train_micro(dtype="float32"):
-    """One DACS step of the micro config (CycleGAN on) from one state,
-    batch and draws: on the card through the kernels, on the card through
-    their plain versions, and (float32) on the CPU; held by the losses and
-    by the gradients each hands AdamW (the first moments after the step)."""
+# the micro step's other train types and options (float32): the DarkZurich
+# preset's (``cs2dz``: image + ISR, attention fusion, no CycleGAN, the ISR
+# rightdown with its parameters, the pseudo weight's rows cropped), and
+# ``cs2dsec_image+events`` with grad_clip at a norm every step exceeds
+TRAIN_MICRO_VARIANTS = ("cs2dz", "events_clip")
+TRAIN_MICRO_CLIP = 1e-3
+
+
+def _micro_cfg(dtype="float32", variant=None):
     from cmda_tpu_torch import config as C
-    from cmda_tpu_torch.data.synthetic import (SyntheticSource,
-                                               SyntheticTarget, uda_batch)
-    from cmda_tpu_torch.uda.dacs import DACSTrainer
     cfg = C.micro_test_config()
     cfg = C.replace(cfg, uda=C.replace(cfg.uda, use_cyclegan_day_events=True),
                     data=C.replace(cfg.data, crop_size=TRAIN_MICRO_HW),
                     dtype=dtype)
+    if variant == "cs2dz":
+        dz = C.cs2dz_image_rawisr_b5()
+        cfg = C.replace(cfg, uda=dz.uda, model=C.replace(
+            cfg.model, train_type=dz.model.train_type,
+            fusion=dz.model.fusion, fusion_isr=dz.model.fusion_isr))
+    elif variant == "events_clip":
+        cfg = C.replace(
+            cfg, model=C.replace(cfg.model, train_type="cs2dsec_image+events"),
+            optim=C.replace(cfg.optim, grad_clip=TRAIN_MICRO_CLIP))
+    return cfg
+
+
+def _moments_spread(a, b):
+    """The largest difference between two train states' AdamW first
+    moments, relative to the largest first moment."""
+    pairs = [(a.optimizer.state[p]["exp_avg"], b.optimizer.state[q]["exp_avg"])
+             for p, q in zip(a.model.parameters(), b.model.parameters())]
+    scale = max(float(u.abs().max()) for u, _ in pairs)
+    return max(float((u - v).abs().max()) for u, v in pairs) / scale
+
+
+def phase_train_micro(dtype="float32", variant=None):
+    """One DACS step of the micro config (CycleGAN on; or a
+    TRAIN_MICRO_VARIANTS train type) from one state, batch and draws: on
+    the card through the kernels, on the card through their plain
+    versions, and (float32) on the CPU; held by the losses and by the
+    gradients each hands AdamW (the first moments after the step). A
+    variant's step also runs twice more through the kernels with
+    deterministic cuDNN algorithms: its forward (every loss, through the
+    CE and argmax kernels) must give the same bits, and the run-to-run
+    spread of its gradients (the bilinear upsample's backward adds with
+    atomics) is reported; so are its card-vs-CPU first moments, not held
+    (a train type other than the flagship's has no such bound yet)."""
+    import copy
+    import torch
+    from cmda_tpu_torch.data.synthetic import (SyntheticSource,
+                                               SyntheticTarget, uda_batch)
+    from cmda_tpu_torch.uda.dacs import DACSTrainer
+    cfg = _micro_cfg(dtype, variant)
+    tag = "train micro" + (f" {variant}" if variant else "")
     cpu, gpu = DACSTrainer(cfg, device="cpu"), DACSTrainer(cfg, device="cuda")
     s_cpu, s_gpu, s_plain = cpu.init_state(), gpu.init_state(), gpu.init_state()
     for s in (s_gpu, s_plain):
-        for a, b in ((s_cpu.model, s.model), (s_cpu.ema_model, s.ema_model),
-                     (s_cpu.cyclegan, s.cyclegan)):
+        pairs = [(s_cpu.model, s.model), (s_cpu.ema_model, s.ema_model)]
+        if s.cyclegan is not None:
+            pairs.append((s_cpu.cyclegan, s.cyclegan))
+        for a, b in pairs:
             b.load_state_dict(a.state_dict())
-    batch = uda_batch(SyntheticSource(crop_size=TRAIN_MICRO_HW),
-                      SyntheticTarget(crop_size=TRAIN_MICRO_HW), [0, 1])
+    start = copy.deepcopy(s_gpu) if variant else None
+    events = cpu.has_events
+    batch = uda_batch(SyntheticSource(crop_size=TRAIN_MICRO_HW,
+                                      with_time_res=events),
+                      SyntheticTarget(crop_size=TRAIN_MICRO_HW,
+                                      with_events=events), [0, 1])
     draws = cpu.new_draws(s_cpu, 2)
     if dtype == "float32":
         _, ref = cpu.train_step(s_cpu, batch, draws)
@@ -1081,7 +1207,7 @@ def phase_train_micro(dtype="float32"):
     with _plain_versions():
         _, plain = gpu.train_step(s_plain, batch, draws.to("cuda"))
     if any(fn.launches != before[k] for k, fn in counters.items()):
-        fail("train micro: the plain-version step launched a kernel")
+        fail(f"{tag}: the plain-version step launched a kernel")
     plain = {k: float(v) for k, v in plain.items()}
     loss_plain = _check_logs(logs, plain, "kernels vs plain on cuda")
     if dtype != "float32":
@@ -1100,15 +1226,47 @@ def phase_train_micro(dtype="float32"):
     loss_cpu = _check_logs(logs, ref, "cuda vs cpu")
     m_plain = _check_moments(s_gpu, s_plain, TRAIN_KERNEL_MOMENT_RTOL,
                              "kernels vs plain on cuda")
-    m_cpu = _check_moments(s_gpu, s_cpu, TRAIN_MOMENT_RTOL, "cuda vs cpu")
-    print(f"train micro: one step, losses max relative error {loss_plain:.3g} "
+    m_cpu = _check_moments(s_gpu, s_cpu, None if variant else
+                           TRAIN_MOMENT_RTOL, "cuda vs cpu")
+    extra = ""
+    if variant:
+        runs = []
+        torch.backends.cudnn.deterministic = True
+        try:
+            for _ in range(2):
+                s = copy.deepcopy(start)
+                _, lg = gpu.train_step(s, batch, draws.to("cuda"))
+                runs.append(({k: float(v) for k, v in lg.items()}, s))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        if runs[0][0] != runs[1][0]:
+            fail(f"{tag}: a second run from the same state gives other "
+                 f"logs: {runs[0][0]} vs {runs[1][0]}")
+        extra = ("; a second run with deterministic cuDNN: logs bitwise "
+                 "equal, first moments within "
+                 f"{_moments_spread(runs[0][1], runs[1][1]):.3g} of the "
+                 "largest")
+        if cfg.optim.grad_clip is not None:
+            norm = float(torch.linalg.vector_norm(torch.stack([
+                p.grad.norm() for p in runs[0][1].model.parameters()])))
+            if abs(norm - cfg.optim.grad_clip) > 1e-3 * cfg.optim.grad_clip:
+                fail(f"{tag}: the clipped gradient's norm is {norm}, not "
+                     f"{cfg.optim.grad_clip}")
+            extra += (f"; gradients clipped to global norm {norm:.6g} "
+                      f"(grad_clip {cfg.optim.grad_clip:g})")
+        extra += (f"; use_events {logs['use_events']:.0f}, streams "
+                  + ",".join(sorted(k[4:] for k in logs
+                                    if k.startswith("src/loss_"))))
+    print(f"{tag}: one step, losses max relative error {loss_plain:.3g} "
           f"(kernels vs plain on cuda) and {loss_cpu:.3g} (cuda vs cpu), "
           f"tolerance {TRAIN_LOSS_RTOL:g}; AdamW first moments within "
           f"{m_plain:.3g} (tolerance {TRAIN_KERNEL_MOMENT_RTOL:g}) and "
-          f"{m_cpu:.3g} (tolerance {TRAIN_MOMENT_RTOL:g}) of the largest; "
+          f"{m_cpu:.3g} ("
+          + ("reported" if variant else f"tolerance {TRAIN_MOMENT_RTOL:g}")
+          + f") of the largest; "
           f"acc_seg {logs['src/acc_seg']:.3f}/{logs['mix/acc_seg']:.3f} vs "
           f"cpu {float(ref['src/acc_seg']):.3f}/"
-          f"{float(ref['mix/acc_seg']):.3f}", flush=True)
+          f"{float(ref['mix/acc_seg']):.3f}{extra}", flush=True)
 
 
 def _device_busy(trainer, state, batch):
@@ -1154,34 +1312,49 @@ def _busy_ms(prof):
     return busy / 1e3, len(spans)
 
 
-def phase_train(dtype="float32", batch=None):
-    """The DACS training step of the flagship cs2dsec MiT-b5 preset at
-    512x512: float32 at the preset's batch 2, or the JAX package's
-    ``bench.py`` step (bfloat16 at batch 8). 3 counted steps (launches,
-    the dtype of the logits each CE launch takes), then the step time, its
-    device-time breakdown and the peak memory. Returns the launches of the
-    3 counted steps by kernel."""
+def _state_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_train(dtype="float32", batch=None, preset="cs2dsec", options=False):
+    """The DACS training step of a MiT-b5 preset at 512x512 (the flagship
+    cs2dsec, or cs2dz): float32 at the preset's batch 2, or the JAX
+    package's ``bench.py`` step (bfloat16 at batch 8), with ``options`` its
+    ``--teacher-bf16 --moments bfloat16`` (``uda.teacher_bf16``,
+    ``optim.moment_dtype='bfloat16'``). 3 counted steps (launches, the
+    dtype of the logits each CE launch takes), then the step time, its
+    device-time breakdown, the peak memory and the bytes of AdamW's state
+    (and of the teacher's bfloat16 copy). Returns the launches of the 3
+    counted steps by kernel."""
     import torch
     from cmda_tpu_torch import config as C
     from cmda_tpu_torch.data.synthetic import (SyntheticSource,
                                                SyntheticTarget, uda_batch)
     from cmda_tpu_torch.uda import transforms
     from cmda_tpu_torch.uda.dacs import DACSTrainer
-    cfg = C.cs2dsec_image_events_b5()
+    cfg = C.PRESETS[preset]()
     cfg = C.replace(cfg, dtype=dtype, data=C.replace(
         cfg.data, batch_size=batch or cfg.data.batch_size))
-    tag = "train" if dtype == "float32" else "train_bf16"
+    if options:
+        cfg = C.replace(cfg, uda=C.replace(cfg.uda, teacher_bf16=True),
+                        optim=C.replace(cfg.optim, moment_dtype="bfloat16"))
+    tag = ("train" + ("" if dtype == "float32" else "_bf16")
+           + ("" if preset == "cs2dsec" else f"_{preset}")
+           + ("_opts" if options else ""))
     b, (w, h) = cfg.data.batch_size, cfg.data.crop_size
     t0 = time.perf_counter()
     trainer = DACSTrainer(cfg, device="cuda")
     state = trainer.init_state(seed=0)
     n_params = sum(p.numel() for p in state.model.parameters())
     torch.cuda.synchronize()
-    print(f"{tag}: cs2dsec MiT-b5 DACS, {n_params} params, {h}x{w} batch {b} "
-          f"{dtype}, remat {cfg.model.remat}, built in "
+    print(f"{tag}: {preset} ({cfg.model.train_type}) MiT-b5 DACS, {n_params} "
+          f"params, {h}x{w} batch {b} {dtype}, remat {cfg.model.remat}, "
+          f"teacher_bf16 {cfg.uda.teacher_bf16}, moments "
+          f"{cfg.optim.moment_dtype}, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    src = SyntheticSource(crop_size=(w, h))
-    tgt = SyntheticTarget(crop_size=(w, h))
+    events = trainer.has_events
+    src = SyntheticSource(crop_size=(w, h), with_time_res=events)
+    tgt = SyntheticTarget(crop_size=(w, h), with_events=events)
     batches = [uda_batch(src, tgt, [b * i + j for j in range(b)])
                for i in range(10)]
     student0 = [p.detach().clone() for p in state.model.parameters()]
@@ -1248,8 +1421,14 @@ def phase_train(dtype="float32", batch=None):
     total = sum(breakdown.values())
     prof_ms, busy_ms, n_events, step_kernels = _device_busy(
         trainer, state, batches[9])
+    adamw_bytes = _state_bytes(t for st in state.optimizer.state.values()
+                               for k, t in st.items() if k != "step")
+    teacher_bytes = (_state_bytes(state.teacher.parameters())
+                     if state.teacher is not None else 0)
     timings = {"train_step_ms_median": statistics.median(step_ms),
                "train_samples_per_s": b / statistics.median(step_ms) * 1e3,
+               "train_adamw_state_bytes": adamw_bytes,
+               "train_teacher_copy_bytes": teacher_bytes,
                "train_ce_logits_dtypes": sorted(ce_dtypes),
                "train_step_ms": step_ms, "train_peak_gib": peak,
                "train_breakdown_ms": breakdown,
@@ -1272,7 +1451,9 @@ def phase_train(dtype="float32", batch=None):
     print(f"{tag}: step time median {statistics.median(step_ms):.2f} ms over "
           f"5 steps ({', '.join(f'{t:.2f}' for t in step_ms)}), "
           f"{b / statistics.median(step_ms) * 1e3:.3f} samples/s; peak device "
-          f"memory {peak:.2f} GiB", flush=True)
+          f"memory {peak:.2f} GiB; AdamW state {adamw_bytes} bytes "
+          f"({adamw_bytes / 2**30:.3f} GiB), teacher bfloat16 copy "
+          f"{teacher_bytes} bytes", flush=True)
     print(f"{tag}: step device ms " + ", ".join(
         f"{k} {v:.2f} ({100 * v / total:.1f}%)" for k, v in breakdown.items())
         + f"; sum {total:.2f}", flush=True)
@@ -1404,13 +1585,15 @@ def _feed_ms(cfg):
             "feed_wire_bytes": nbytes(wire)}
 
 
-def phase_loop():
-    """The DACS training run of the flagship through
-    ``cmda_tpu_torch.tools.train.main`` (loader threads, bf16 wire feed,
-    device prefetch, TrainLoop, checkpoints, periodic evaluation, debug
-    grids), with its launch counts per step, debug snapshot and
-    evaluation; then a checkpoint loaded in a fresh trainer against the
-    state it was written from, and the last checkpoint served."""
+def phase_loop(preset="cs2dsec"):
+    """The DACS training run of a preset (the flagship cs2dsec, or cs2dz)
+    through ``cmda_tpu_torch.tools.train.main --config <preset>`` (loader
+    threads, bf16 wire feed, device prefetch, TrainLoop, checkpoints,
+    periodic evaluation, debug grids), with its launch counts per step,
+    debug snapshot and evaluation; then a checkpoint loaded in a fresh
+    trainer against the state it was written from (the resume), stepping as
+    it does, and the last checkpoint served; for cs2dsec also the host
+    parts of ``data_time`` (``_feed_ms``)."""
     import copy
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1424,13 +1607,14 @@ def phase_loop():
     gc.collect()
     torch.cuda.empty_cache()
     counters = _kernel_counters()
-    cfg = C.replace(C.cs2dsec_image_events_b5(), log_interval=1,
+    tag = "loop" if preset == "cs2dsec" else f"loop_{preset}"
+    cfg = C.replace(C.PRESETS[preset](), log_interval=1,
                     checkpoint_interval=LOOP_INTERVAL,
                     eval_interval=LOOP_INTERVAL,
                     debug_img_interval=LOOP_INTERVAL)
     if not (cfg.data.wire_bf16 and cfg.data.device_prefetch == 1
             and cfg.data.workers == 4 and cfg.checkpoint_max_keep == 1):
-        fail(f"loop: the preset's data settings changed: {cfg.data}")
+        fail(f"{tag}: the preset's data settings changed: {cfg.data}")
     launches = {"step": [], "debug": [], "eval": []}
     timings = {"checkpoint_write_s": [], "eval_s": []}
     saved, prof = {}, {}
@@ -1497,13 +1681,13 @@ def phase_loop():
 
     with tempfile.TemporaryDirectory() as tmp:
         work = os.path.join(tmp, "work")
-        argv = ["--config", "cs2dsec", "--synthetic", "--work-dir", work,
+        argv = ["--config", preset, "--synthetic", "--work-dir", work,
                 "--max-iters", str(LOOP_ITERS), "--num-workers", "4",
                 "--seed", "0"]
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        with mock.patch.dict(C.PRESETS, {"cs2dsec": lambda: cfg}), \
+        with mock.patch.dict(C.PRESETS, {preset: lambda: cfg}), \
                 mock.patch.object(DACSTrainer, "train_step", train_step), \
                 mock.patch.object(DACSTrainer, "debug_tensors", counted(
                     "debug", DACSTrainer.debug_tensors)), \
@@ -1521,21 +1705,22 @@ def phase_loop():
         run_s = time.perf_counter() - t0
         totals = {k: f.launches for k, f in counters.items()}
         state = loop.state
+        per_step = step_launches(loop.trainer)
 
         # --- what the run wrote ------------------------------------------
         with open(loop.log_path) as f:
             records = [json.loads(line) for line in f]
         steps = [r for r in records if "loss" in r]
         if [r["iter"] for r in steps] != list(range(1, LOOP_ITERS + 1)):
-            fail(f"loop: step records {[r['iter'] for r in steps]}")
+            fail(f"{tag}: step records {[r['iter'] for r in steps]}")
         bad = [(r["iter"], k) for r in steps for k, v in r.items()
                if not math.isfinite(v)]
         if bad:
-            fail(f"loop: log values not finite: {bad}")
+            fail(f"{tag}: log values not finite: {bad}")
         files = sorted(os.listdir(work))
         ckpts = [f for f in files if f.startswith("iter_")]
         if ckpts != [f"iter_{LOOP_ITERS}.pth"]:
-            fail(f"loop: checkpoints {ckpts}, expected only "
+            fail(f"{tag}: checkpoints {ckpts}, expected only "
                  f"iter_{LOOP_ITERS}.pth (iter_{LOOP_INTERVAL}.pth pruned)")
         evals = [f for f in files if f.startswith("test_results_")]
         scores = {r["iter"]: r["eval"]["mIoU"] for r in records
@@ -1544,34 +1729,34 @@ def phase_loop():
                       for it, m in scores.items())
         if sorted(scores) != [LOOP_INTERVAL, LOOP_ITERS] or sorted(
                 evals) != want:
-            fail(f"loop: evaluation dirs {evals}, expected {want}")
+            fail(f"{tag}: evaluation dirs {evals}, expected {want}")
         for e in evals:
             panels = sorted(os.listdir(os.path.join(work, e)))
             if panels != [f"{i:06d}.png" for i in range(LOOP_VAL)]:
-                fail(f"loop: {e} holds {panels}")
+                fail(f"{tag}: {e} holds {panels}")
         grids = sorted(os.listdir(os.path.join(work, "class_mix_debug")))
         if grids != [f"{it:06d}_{i}.png" for it in (LOOP_INTERVAL, LOOP_ITERS)
                      for i in range(2)]:
-            fail(f"loop: class_mix_debug holds {grids}")
+            fail(f"{tag}: class_mix_debug holds {grids}")
         if "code.tar.gz" not in files:
-            fail("loop: no code.tar.gz")
+            fail(f"{tag}: no code.tar.gz")
 
         # --- launches ----------------------------------------------------
         n_evals = LOOP_ITERS // LOOP_INTERVAL
-        if (launches["step"] != [TRAIN_LAUNCHES_PER_STEP] * LOOP_ITERS
+        if (launches["step"] != [per_step] * LOOP_ITERS
                 or launches["debug"] != [LOOP_DEBUG_LAUNCHES] * n_evals
                 or launches["eval"] != [LOOP_EVAL_LAUNCHES] * n_evals):
-            fail(f"loop: launches per step {launches['step']}, per debug "
+            fail(f"{tag}: launches per step {launches['step']}, per debug "
                  f"snapshot {launches['debug']}, per evaluation "
                  f"{launches['eval']}")
-        expect = {k: LOOP_ITERS * TRAIN_LAUNCHES_PER_STEP[k]
+        expect = {k: LOOP_ITERS * per_step[k]
                   + n_evals * (LOOP_DEBUG_LAUNCHES[k]
                                + LOOP_EVAL_LAUNCHES[k]) for k in totals}
         if totals != expect:
-            fail(f"loop: launches {totals}, expected {expect}")
-        print(f"loop: {LOOP_ITERS} iterations through tools.train.main in "
+            fail(f"{tag}: launches {totals}, expected {expect}")
+        print(f"{tag}: {LOOP_ITERS} iterations through tools.train.main in "
               f"{run_s:.1f} s; launches {totals} (per step "
-              f"{TRAIN_LAUNCHES_PER_STEP}, per debug snapshot argmax 1 ISR "
+              f"{per_step}, per debug snapshot argmax 1 ISR "
               f"1, per evaluation argmax {LOOP_VAL}); final loss "
               f"{steps[-1]['loss']:.5f}; mIoU {scores}", flush=True)
 
@@ -1592,11 +1777,14 @@ def phase_loop():
                 and ref[k].device == got[k].device
                 and torch.equal(ref[k], got[k]))]
         if diff or got["step"] != LOOP_INTERVAL:
-            fail(f"loop: iter_{LOOP_INTERVAL}.pth loads back different "
+            fail(f"{tag}: iter_{LOOP_INTERVAL}.pth loads back different "
                  f"tensors: {diff[:8]}")
         (w, h) = cfg.data.crop_size
-        batch = uda_batch(SyntheticSource(crop_size=(w, h)),
-                          SyntheticTarget(crop_size=(w, h)), [0, 1])
+        events = loop.trainer.has_events
+        batch = uda_batch(SyntheticSource(crop_size=(w, h),
+                                          with_time_res=events),
+                          SyntheticTarget(crop_size=(w, h),
+                                          with_events=events), [0, 1])
         draws = trainer.new_draws(loaded, cfg.data.batch_size)
 
         def step_logs(state):
@@ -1618,9 +1806,9 @@ def phase_loop():
         timings["resume_step_rel_diff_usual"] = worst(*usual)
         timings["resume_step_rel_diff_deterministic"] = worst(a, b)
         if worst(a, b) > LOOP_LOG_RTOL:
-            fail(f"loop: a step from the loaded state differs by "
+            fail(f"{tag}: a step from the loaded state differs by "
                  f"{worst(a, b):.3g} relative: {a} vs {b}")
-        print(f"loop: iter_{LOOP_INTERVAL}.pth in a fresh trainer equals the "
+        print(f"{tag}: iter_{LOOP_INTERVAL}.pth in a fresh trainer equals the "
               f"state it was written from in all {len(ref)} tensors and the "
               f"step; one step from each on one batch and draws, with "
               f"deterministic cuDNN algorithms: logs "
@@ -1638,16 +1826,18 @@ def phase_loop():
         seg = init_segmentor(cfg, os.path.join(work, ckpts[0]),
                              device="cuda")
         sample = SyntheticTarget(crop_size=(w, h), length=LOOP_VAL,
+                                 with_events=loop.trainer.has_events,
                                  test_mode=True)[0]
-        ours = seg.predict(sample["image"], sample["events"])
-        student = Segmentor(cfg, state.model).predict(sample["image"],
-                                                      sample["events"])
+        second = sample.get("events", sample["isr"])
+        ours = seg.predict(sample["image"], second)
+        student = Segmentor(cfg, state.model, seg.output).predict(
+            sample["image"], second)
         if not torch.equal(ours, student):
-            fail("loop: init_segmentor(iter_8.pth) predicts other labels "
+            fail(f"{tag}: init_segmentor(iter_8.pth) predicts other labels "
                  "than the student")
         del seg
 
-    feed = _feed_ms(cfg)
+    feed = _feed_ms(cfg) if preset == "cs2dsec" else {}
     iter_ms = {r["iter"]: r["time"] * 1e3 for r in steps}
     busy_ms, n_events = _busy_ms(prof["p"])
     timings.update({
@@ -1666,18 +1856,19 @@ def phase_loop():
         "loop_queue_ms": split["queue"][2:LOOP_ITERS + 1],
         "loop_encode_ms": split["encode"][2:LOOP_ITERS + 1],
         "loop_run_s": run_s, **feed})
-    print("loop: iteration ms " + ", ".join(
+    print(f"{tag}: iteration ms " + ", ".join(
         f"{i} {t:.2f}" for i, t in iter_ms.items())
         + f"; steady median (iterations {LOOP_STEADY}) "
         f"{timings['loop_iter_ms_median_steady']:.2f} ms, of the unprofiled "
         f"ones {timings['loop_iter_ms_median_unprofiled']:.2f} ms", flush=True)
-    print("loop: data_time ms " + ", ".join(
+    print(f"{tag}: data_time ms " + ", ".join(
         f"{i} {t:.3f}" for i, t in timings["loop_data_ms"].items())
         + f"; median after the first {timings['loop_data_ms_median']:.3f}; "
         f"of it, in the loop (iterations 2-8, median): the loader queue "
         f"{statistics.median(timings['loop_queue_ms']):.3f} ms, encode_wire "
-        f"{statistics.median(timings['loop_encode_ms']):.3f} ms; outside "
-        f"the loop: encode_wire of one batch again "
+        f"{statistics.median(timings['loop_encode_ms']):.3f} ms" + (
+        "" if not feed else
+        f"; outside the loop: encode_wire of one batch again "
         f"{feed['feed_encode_ms']:.3f} ms, of fresh batches "
         f"{feed['feed_encode_fresh_ms']:.3f} ms, of a batch just taken from "
         f"a running loader {feed['feed_encode_under_loader_ms']:.3f} ms "
@@ -1686,19 +1877,19 @@ def phase_loop():
         f"{feed['feed_encode_under_loader_1_thread_ms']:.3f} ms); the "
         f"feed's next() (pinned fill, copy issued) "
         f"{feed['feed_next_ms']:.3f} ms; one loader batch on one thread "
-        f"{feed['loader_batch_ms']:.1f} ms", flush=True)
-    print(f"loop: checkpoint {timings['checkpoint_bytes']} bytes, written in "
+        f"{feed['loader_batch_ms']:.1f} ms"), flush=True)
+    print(f"{tag}: checkpoint {timings['checkpoint_bytes']} bytes, written in "
           + ", ".join(f"{t:.2f}" for t in timings["checkpoint_write_s"])
           + f" s, read in {timings['checkpoint_read_s']:.2f} s; evaluation "
           f"of {LOOP_VAL} samples " + ", ".join(
               f"{t:.2f}" for t in timings["eval_s"]) + " s", flush=True)
-    print(f"loop: profiled iterations {LOOP_PROFILED}: " + (
+    print(f"{tag}: profiled iterations {LOOP_PROFILED}: " + (
         f"{prof['host_ms']:.2f} ms host, device busy {busy_ms:.2f} ms "
         f"({100 * busy_ms / prof['host_ms']:.1f}%) over {n_events} device "
         "events" if busy_ms is not None else
         f"{prof['host_ms']:.2f} ms host, device busy not measured (the trace "
         "holds no device event)"), flush=True)
-    print("loop timings " + json.dumps(timings), flush=True)
+    print(f"{tag} timings " + json.dumps(timings), flush=True)
     return totals
 
 
@@ -1767,19 +1958,37 @@ def main():
     torch.cuda.empty_cache()
     phase_train_micro("bfloat16")
     bf16_launches = phase_train("bfloat16", batch=8)
+    # the same with bench.py's --teacher-bf16 --moments bfloat16
+    gc.collect()
+    torch.cuda.empty_cache()
+    opts_launches = phase_train("bfloat16", batch=8, options=True)
     gc.collect()
     torch.cuda.empty_cache()
     loop_launches = phase_loop()
+    # the other train types at the micro size (cs2dz; cs2dsec_image+events
+    # with grad_clip), then the DarkZurich preset's step and run
+    for variant in TRAIN_MICRO_VARIANTS:
+        phase_train_micro(variant=variant)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dz_launches = phase_train(preset="cs2dz")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dz_loop_launches = phase_loop("cs2dz")
     for r in results:
         # the serving kernels keep their serving-path count under
         # "launches"; the training path's count goes beside it, and the
-        # bfloat16 step's (3 steps) and the training run's (8 iterations,
-        # 2 debug snapshots, 2 evaluations)
+        # bfloat16 step's (3 steps, without and with the options) and the
+        # training run's (8 iterations, 2 debug snapshots, 2 evaluations),
+        # each also for cs2dz
         key = ("launches" if r["name"].startswith("fused_resize_ce")
                else "launches_train")
         r[key] = launches[r["name"]]
         r["launches_train_bf16"] = bf16_launches[r["name"]]
+        r["launches_train_bf16_opts"] = opts_launches[r["name"]]
         r["launches_loop"] = loop_launches[r["name"]]
+        r["launches_train_cs2dz"] = dz_launches[r["name"]]
+        r["launches_loop_cs2dz"] = dz_loop_launches[r["name"]]
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi, flush=True)

@@ -178,27 +178,29 @@ class DAFormerFusionHead(DAFormerDecoder):
         split back, which equals the per-stream loop. With batch statistics
         the streams go one after another through the shared decoder, in the
         order image, events, fusion, isr, each moving the running statistics
-        in turn. ``dropout_keep`` [4, B, C] holds the Dropout2d keep-masks of
-        the four streams in that order (needed when ``train``)."""
+        in turn. ``dropout_keep`` [S, B, C] holds the Dropout2d keep-masks of
+        the S decoded streams in that order (needed when ``train``): four
+        with the ISR stream, three (image, events, fusion) without it, as
+        the JAX head draws one mask per stream it decodes."""
         bn = train if bn_train is None else bn_train
         plan = [("image", "image_output", feats.get("f_image")),
                 ("events", "events_output", feats.get("f_events")),
                 ("fusion", "fusion_output", feats.get("f_fusion")),
                 ("isr", "img_self_res_output", feats.get("f_img_self_res"))]
-        active = [(pos, k, f) for pos, (n, k, f) in enumerate(plan)
+        active = [(k, f) for n, k, f in plan
                   if f is not None and (streams is None or n in streams)]
         out = {k: None for _, k, _ in plan}
         if train and self.conv_seg.dropout_ratio > 0 and dropout_keep is None:
             raise ValueError("train=True needs the Dropout2d keep-masks")
         if len(active) > 1 and not bn and not train:
-            stacked = [torch.cat([f[i] for _, _, f in active], dim=0)
-                       for i in range(len(active[0][2]))]
+            stacked = [torch.cat([f[i] for _, f in active], dim=0)
+                       for i in range(len(active[0][1]))]
             logits = self.conv_seg(self.decode(stacked))
-            for key, part in zip([k for _, k, _ in active],
+            for key, part in zip([k for k, _ in active],
                                  logits.chunk(len(active), dim=0)):
                 out[key] = part
             return out
-        for pos, key, f in active:
-            keep = dropout_keep[pos] if train else None
+        for j, (key, f) in enumerate(active):
+            keep = dropout_keep[j] if train else None
             out[key] = self.conv_seg(self.decode(f, bn, bn_update), keep)
         return out

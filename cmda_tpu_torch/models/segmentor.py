@@ -9,10 +9,13 @@ the modules inside are NCHW.
 
 Training (``forward_train``, or ``forward_logits(train=True)``) takes its
 random draws as a ``ForwardDraws``: the drop-path uniforms of every encoder
-stage and fusion block and the classifier's Dropout2d keep-masks. The
-events and ISR streams share one double-batch pass through
-``backbone_events``, so its uniforms are [depth, 2, 2B], one draw for both
-halves, as in the JAX package.
+stage and fusion block and the classifier's Dropout2d keep-masks. With both
+an events and an ISR input (the ``events_together`` forward) they share one
+double-batch pass through ``backbone_events``, so its uniforms are
+[depth, 2, 2B], one draw for both halves, as in the JAX package. Without
+the ISR input (the single-batch forward of ``cs2dz_image+raw-isr`` and
+``cs2dsec_image+events``, whose second input is the ISR or the events) the
+events backbone takes [depth, 2, B] and three streams are decoded.
 """
 from __future__ import annotations
 
@@ -60,10 +63,11 @@ def _nchw(x, dtype):
 class ForwardDraws:
     """Random draws of one training forward. Drop-path uniforms are U[0, 1)
     per encoder stage, ``image`` [depth_s, 2, B] and ``events``
-    [depth_s, 2, 2B] (the events+ISR double batch), and ``fusion``
-    [n_blocks, 2, B] for the fusion module; ``dropout_keep`` [4, B, C] are
-    the classifier's channel keep-masks of the image, events, fusion and isr
-    streams."""
+    [depth_s, 2, 2B] for the events+ISR double batch ([depth_s, 2, B]
+    without the ISR input), and ``fusion`` [n_blocks, 2, B] for the fusion
+    module; ``dropout_keep`` [S, B, C] are the classifier's channel
+    keep-masks of the image, events, fusion (and isr) streams, S = 4 with
+    the ISR input and 3 without."""
     image: Optional[Sequence[torch.Tensor]] = None
     events: Optional[Sequence[torch.Tensor]] = None
     fusion: Optional[torch.Tensor] = None
@@ -110,21 +114,25 @@ class FusionEncoderDecoder(nn.Module):
             events_classes=cfg.events_classes)
 
     def new_draws(self, batch: int, *, generator: torch.Generator,
-                  device: torch.device) -> ForwardDraws:
+                  device: torch.device, with_isr: bool = True
+                  ) -> ForwardDraws:
         """Fresh ``ForwardDraws`` for a training forward at ``batch``, drawn
-        from ``generator`` on ``device``."""
+        from ``generator`` on ``device``: for the events+ISR double batch
+        (``with_isr``) or the single-batch forward without the ISR input."""
         def uniform(*shape):
             return torch.rand(shape, generator=generator, device=device)
 
         depths = self.backbone_image.cfg.depths
         rate = self.decode_head.conv_seg.dropout_ratio
         n_cls = self.decode_head.conv_seg.in_channels
+        events = 2 * batch if with_isr else batch
         return ForwardDraws(
             image=[uniform(d, 2, batch) for d in depths],
-            events=[uniform(d, 2, 2 * batch) for d in depths],
+            events=[uniform(d, 2, events) for d in depths],
             fusion=uniform(num_drop_path_blocks(self.fusion_module), 2,
                            batch),
-            dropout_keep=uniform(4, batch, n_cls) < 1.0 - rate)
+            dropout_keep=uniform(4 if with_isr else 3, batch, n_cls)
+            < 1.0 - rate)
 
     def extract_feat(self, image, events, img_self_res=None,
                      mode: str = "default",
@@ -132,13 +140,18 @@ class FusionEncoderDecoder(nn.Module):
         """NCHW inputs -> {'f_image', 'f_events', 'f_fusion',
         'f_img_self_res'} NCHW pyramids (None where absent). ``draws``
         (training) carries the drop-path uniforms; None is eval. Training
-        is ported for mode 'default' with the events+ISR double batch."""
+        is ported for mode 'default', with the events+ISR double batch or
+        with events alone."""
         double = (events is not None and img_self_res is not None
                   and events.shape == img_self_res.shape)
-        if draws is not None and not (double and mode == "default"):
+        if draws is not None and not (
+                mode == "default" and events is not None
+                and (double or img_self_res is None)):
             raise NotImplementedError(
-                f"training forward in mode {mode!r} without the events+ISR "
-                "double batch is not ported")
+                f"training forward in mode {mode!r} with events "
+                f"{'absent' if events is None else 'present'} and ISR "
+                f"{'absent' if img_self_res is None else 'present'} is not "
+                "ported")
         d = draws if draws is not None else ForwardDraws()
         f_image = (self.backbone_image(image, d.image)
                    if image is not None else None)
@@ -150,7 +163,7 @@ class FusionEncoderDecoder(nn.Module):
             f_events = [f[:b] for f in both]
             f_isr = [f[b:] for f in both]
         else:
-            f_events = (self.backbone_events(events)
+            f_events = (self.backbone_events(events, d.events)
                         if events is not None else None)
             f_isr = (self.backbone_events(img_self_res)
                      if img_self_res is not None else None)

@@ -6,6 +6,8 @@ device (mirrors tools/train.py of the JAX package).
     python -m cmda_tpu_torch.tools.train --config cs2dsec --synthetic \\
         --work-dir work_dirs/b5 --pretrained-backbone mit_b5.pth \\
         --cyclegan cityscapes_ICD_to_dsec_EN.pth
+    python -m cmda_tpu_torch.tools.train --config cs2dz --synthetic \\
+        --work-dir work_dirs/dz [--teacher-bf16]
 
 Prints ``{"done": true, "step": N, "work_dir": ...}`` at the end;
 ``main(argv)`` returns the ``TrainLoop`` (its final state in ``.state``).
@@ -30,7 +32,6 @@ from ..utils.weights import (load_pretrained_backbone, load_torch_file,
 _UNPORTED = {
     **dict.fromkeys(("--source-root", "--target-root", "--target-txt",
                      "--val-txt", "--rcs-json-dir"), 4),
-    "--teacher-bf16": 2,
     **dict.fromkeys(("--multi-host", "--coordinator", "--data-parallel",
                      "--shard-opt-state", "--tensor-parallel"), 7),
     "--imnet": 5,
@@ -58,7 +59,8 @@ _UNPORTED = {
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="cmda_tpu_torch trainer",
                                 allow_abbrev=False)
-    p.add_argument("--config", default="cs2dsec", choices=["cs2dsec", "tiny"])
+    p.add_argument("--config", default="cs2dsec",
+                   choices=["cs2dsec", "cs2dz", "tiny"])
     p.add_argument("--work-dir", default=None)
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic data (the only data ported so far)")
@@ -77,6 +79,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "(reference dacs.py:96-103)")
     p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
                    help="model compute dtype (parameters stay float32)")
+    p.add_argument("--teacher-bf16", action="store_true",
+                   help="the teacher reads a bfloat16 cast of the EMA "
+                        "weights (uda.teacher_bf16); the EMA stays float32")
     p.add_argument("--device", default="cuda")
     args, extra = p.parse_known_args(argv)
     for token in extra:
@@ -99,6 +104,8 @@ def build_config(args) -> C.RunConfig:
         cfg = C.replace(cfg, seed=args.seed)
     if args.dtype:
         cfg = C.replace(cfg, dtype=args.dtype)
+    if args.teacher_bf16:
+        cfg = C.replace(cfg, uda=C.replace(cfg.uda, teacher_bf16=True))
     if args.batch_size:
         cfg = C.replace(cfg, data=C.replace(cfg.data,
                                             batch_size=args.batch_size))

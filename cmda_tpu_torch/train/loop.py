@@ -181,7 +181,8 @@ class TrainLoop:
     def _dump_debug_grids(self, it: int, dbg: dict):
         """class_mix_debug grids (reference dacs.py:882-1097): per batch
         sample (at most 2) one PNG of the source, target and mixed images,
-        their labels, second modality, and the mix mask and pixel weights."""
+        their labels, second modality (the events, or the ISR where the
+        train type has no events), and the mix mask and pixel weights."""
         from PIL import Image
         out_dir = os.path.join(self.work_dir, "class_mix_debug")
         os.makedirs(out_dir, exist_ok=True)
@@ -190,6 +191,8 @@ class TrainLoop:
             u8 = np.clip(x * 255.0, 0, 255).astype(np.uint8)
             return np.repeat(u8[..., None], 3, -1)
 
+        second = "night_events" if "night_events" in dbg else "night_isr"
+        mixed2 = "mixed_events" if "mixed_events" in dbg else "mixed_isr"
         for i in range(min(dbg["day_image"].shape[0], 2)):
             rows = [
                 [denorm_to_uint8(dbg["day_image"][i]),
@@ -199,8 +202,8 @@ class TrainLoop:
                  colorize_label(dbg["pseudo_label"][i]),
                  colorize_label(dbg["mixed_lbl"][i])],
                 [signed_to_uint8(dbg["day_isr"][i][..., 0]),
-                 signed_to_uint8(dbg["night_events"][i][..., 0]),
-                 signed_to_uint8(dbg["mixed_events"][i][..., 0])],
+                 signed_to_uint8(dbg[second][i][..., 0]),
+                 signed_to_uint8(dbg[mixed2][i][..., 0])],
                 [gray(dbg["masks"][i].astype(np.float32)),
                  gray(dbg["pseudo_weight"][i]),
                  gray(dbg["mixed_weight"][i])],

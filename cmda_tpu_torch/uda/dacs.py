@@ -1,26 +1,39 @@
 """DACS, the CMDA self-training step (mirrors cmda_tpu.uda.dacs for the
-flagship ``cs2dsec_image+events_together`` preset).
+fusion train types ``cs2dsec_image+events_together`` (the flagship),
+``cs2dsec_image+events`` and ``cs2dz_image+raw-isr``).
 
 One ``train_step``:
-  1. day events: the frozen CycleGAN on the mean of the source temporal
-     difference, repeated to 3 channels (no grad);
-  2. the events-vs-ISR coin for the teacher;
+  1. day events (the cs2dsec types): the frozen CycleGAN on the mean of the
+     source temporal difference, repeated to 3 channels (no grad);
+  2. the events-vs-ISR coin;
   3. the EMA teacher update BEFORE the pseudo-labels,
      alpha = min(1 - 1/(t+1), uda.alpha), over the parameters only;
+     with ``uda.teacher_bf16`` the teacher's bfloat16 copy is refreshed
+     from it;
   4. the teacher (dropout and drop-path off, BN on batch statistics that
-     are not kept) on the night image + where(coin, events, ISR), decoding
-     only the fusion stream at stride 4; pseudo-labels and the
-     confidence-ratio weight through the fused upsample+argmax kernel;
-  5. ClassMix of source into target with color jitter and Gaussian blur;
-     the mixed ISR recomputed from the mixed image (PIL-exact grayscale,
-     then the batched ISR kernel, one random direction per image);
+     are not kept) on the night image and a second input, decoding only
+     the fusion stream at stride 4: where(coin, events, ISR) for the
+     cs2dsec types, the night ISR for cs2dz; pseudo-labels and the
+     confidence-ratio weight (top and bottom rows zeroed as the config
+     says) through the fused upsample+argmax kernel;
+  5. ClassMix of source into target with color jitter and Gaussian blur
+     (and of the events, for the cs2dsec types); the mixed ISR recomputed
+     from the mixed image (PIL-exact grayscale, then the batched ISR
+     kernel, one random direction per image, or the config's fixed
+     ``shift_type``);
   6. the source forward and backward, then the mixed forward and backward,
      the gradients summed by accumulation (the source activations are freed
-     before the mixed forward starts), the four-stream CE through the fused
+     before the mixed forward starts), each stream's CE through the fused
      upsample+CE kernels; both forwards take the same drop-path and
-     Dropout2d draws, as the JAX step hands both the same rngs;
-  7. AdamW (head lr x10, no decay on norms), parameters without a gradient
-     given zeros as optax would.
+     Dropout2d draws, as the JAX step hands both the same rngs. The
+     student's inputs: (image, events, ISR), four streams, for
+     ``events_together``; (image, where(coin, events, ISR)) for
+     ``cs2dsec_image+events`` and (image, ISR) for cs2dz, a single batch
+     through the events backbone and three streams;
+  7. ``optim.grad_clip`` (the global norm of the summed gradient), then
+     AdamW (head lr x10, no decay on norms; bfloat16 moments with
+     ``optim.moment_dtype``), parameters without a gradient given zeros as
+     optax would.
 
 Randomness is injectable: ``train_step(state, batch, draws)`` takes a
 ``StepDraws``; without it the trainer draws one from its own
@@ -42,8 +55,18 @@ the stream logits, the losses and the pseudo-labels are float32 as there;
 the CycleGAN, ClassMix, jitter, blur and the mixed ISR work on the float32
 images.
 
-Only the flagship's flags are ported; any other train type or option
-raises ``NotImplementedError`` naming it.
+``uda.teacher_bf16``: the teacher reads a bfloat16 cast of the EMA
+parameters; the EMA itself stays float32. The JAX modules promote their
+parameters to the module's ``dtype``, so with ``dtype='float32'`` that is a
+float32 forward on bfloat16-rounded weights, and with ``'bfloat16'`` the
+bfloat16 forward. The port keeps one copy of the teacher holding those
+values (``DACSTrainState.teacher``), refreshed once per step after the EMA
+update: the weights of the layers that compute in the model's dtype
+(``Linear``, ``Conv2d``) in that dtype, the rest (norms, classifier) as
+bfloat16-rounded float32, so no layer casts per call.
+
+Any other train type or option raises ``NotImplementedError`` naming it
+and its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -57,6 +80,7 @@ from ..apis import build_model, resolve_device
 from ..config import RunConfig
 from ..data.loader import host_tensor
 from ..data.wire import decode_wire
+from ..models.common import Conv2d, Linear
 from ..models.cyclegan import (ResnetGenerator, generator_from_params,
                                init_generator)
 from ..models.segmentor import FusionEncoderDecoder, ForwardDraws
@@ -66,20 +90,22 @@ from ..ops.augment import (class_mix_mask, jitter_factors,
 from ..ops.isr import SHIFT_DIRECTIONS, pil_grayscale
 from ..ops.isr_kernel import batched_isr
 from ..ops.normalize import denorm_image
-from ..train.optim import (make_optimizer, make_schedules, set_lr,
-                           zero_missing_grads)
+from ..train.optim import (clip_grad_global_norm_, make_optimizer,
+                           make_schedules, set_lr, zero_missing_grads)
 from .transforms import multi_stream_loss, pseudo_label_and_weight_coarse
 
-TRAIN_TYPE = "cs2dsec_image+events_together"
-# flag -> the value the flagship runs with; anything else is not ported
-_FLAGSHIP_UDA = {
-    "fuse_both_ice_and_e": False, "isr_another_fusion": False,
-    "isr_no_fusion": False, "isr_edge": False, "isr_mix_aug": False,
-    "deflare_aug": False, "shift_3_channel": False,
-    "isr_noise_dacs_type": "", "source_only": False,
-    "stacked_stream_ce": False, "teacher_bf16": False,
-    "mixed_image_to_mixed_isr": True, "without_events": False,
-    "without_isd": False, "imnet_feature_dist_lambda": 0.0}
+TOGETHER = "cs2dsec_image+events_together"
+TRAIN_TYPES = (TOGETHER, "cs2dsec_image+events", "cs2dz_image+raw-isr")
+# flag -> (the only value ported, the ROADMAP queue A item that ports the
+# others)
+_PORTED_UDA = {
+    "fuse_both_ice_and_e": (False, 5), "isr_another_fusion": (False, 5),
+    "isr_no_fusion": (False, 5), "isr_edge": (False, 5),
+    "isr_mix_aug": (False, 5), "deflare_aug": (False, 5),
+    "shift_3_channel": (False, 5), "isr_noise_dacs_type": ("", 5),
+    "source_only": (False, 5), "stacked_stream_ce": (False, 2),
+    "mixed_image_to_mixed_isr": (True, 5), "without_events": (False, 5),
+    "without_isd": (False, 5), "imnet_feature_dist_lambda": (0.0, 5)}
 
 
 @dataclass
@@ -112,13 +138,17 @@ class StepDraws:
 @dataclass
 class DACSTrainState:
     """The student, its EMA teacher, AdamW, the frozen CycleGAN and the
-    number of steps taken. ``train_step`` updates it in place."""
+    number of steps taken; with ``uda.teacher_bf16``, ``teacher``, the
+    bfloat16 copy of the EMA teacher that its forward reads (derived from
+    ``ema_model`` each step, so no checkpoint holds it). ``train_step``
+    updates the state in place."""
     model: FusionEncoderDecoder
     ema_model: FusionEncoderDecoder
     optimizer: torch.optim.Optimizer
     cyclegan: ResnetGenerator | None = None
     step: int = 0
     schedules: dict = field(default_factory=dict)
+    teacher: FusionEncoderDecoder | None = None
 
 
 def _to_device(tree, device):
@@ -130,13 +160,17 @@ def _to_device(tree, device):
 
 
 class DACSTrainer:
-    """Builds the flagship DACS step for a RunConfig on ``device`` (cuda
-    unless the caller asks for the CPU)."""
+    """Builds the DACS step of a RunConfig on ``device`` (cuda unless the
+    caller asks for the CPU)."""
 
     def __init__(self, cfg: RunConfig, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self._check_supported(cfg)
+        train_type = cfg.model.train_type
+        self.has_events = train_type.startswith("cs2dsec")
+        # the events+ISR double batch and the four-stream loss
+        self.together = train_type == TOGETHER
         # set to a list to collect (name, CUDA event, peak bytes since the
         # last mark, live bytes) at the step's section boundaries: a
         # device-time and memory breakdown
@@ -144,22 +178,23 @@ class DACSTrainer:
 
     @staticmethod
     def _check_supported(cfg):
-        if cfg.model.train_type != TRAIN_TYPE:
+        if cfg.model.train_type not in TRAIN_TYPES:
             raise NotImplementedError(
                 f"model.train_type={cfg.model.train_type!r} is not ported "
-                f"(only {TRAIN_TYPE!r})")
-        for name, want in _FLAGSHIP_UDA.items():
+                f"(ROADMAP queue A item 5; ported: {', '.join(TRAIN_TYPES)})")
+        for name, (want, item) in _PORTED_UDA.items():
             if getattr(cfg.uda, name) != want:
-                raise NotImplementedError(f"uda.{name}="
-                                          f"{getattr(cfg.uda, name)!r} is "
-                                          "not ported")
+                raise NotImplementedError(
+                    f"uda.{name}={getattr(cfg.uda, name)!r} is not ported "
+                    f"(ROADMAP queue A item {item})")
         if cfg.uda.shift_type == "all":
-            raise NotImplementedError("uda.shift_type='all' is not ported")
+            raise NotImplementedError("uda.shift_type='all' is not ported "
+                                      "(ROADMAP queue A item 2)")
         if cfg.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype={cfg.dtype!r}")
         if cfg.model.head_batched_train:
             raise NotImplementedError("model.head_batched_train is not "
-                                      "ported")
+                                      "ported (ROADMAP queue A item 2)")
         if cfg.uda.img_self_res_reg not in {"no", "only_isr", "mixed",
                                             "average"}:
             raise ValueError(f"uda.img_self_res_reg="
@@ -179,7 +214,7 @@ class DACSTrainer:
         model = build_model(cfg, self.device, seed)
         ema = copy.deepcopy(model).requires_grad_(False)
         cyclegan = None
-        if cfg.uda.use_cyclegan_day_events:
+        if self.has_events and cfg.uda.use_cyclegan_day_events:
             with torch.device(self.device):
                 if cyclegan_state_dict is not None:
                     cyclegan = generator_from_params(cyclegan_state_dict)
@@ -194,7 +229,25 @@ class DACSTrainer:
         return DACSTrainState(model=model, ema_model=ema,
                               optimizer=make_optimizer(model, cfg.optim),
                               cyclegan=cyclegan,
-                              schedules=make_schedules(cfg.optim))
+                              schedules=make_schedules(cfg.optim),
+                              teacher=self._teacher_copy(ema))
+
+    def _teacher_copy(self, ema: FusionEncoderDecoder):
+        """With ``uda.teacher_bf16``, a copy of ``ema`` whose parameters
+        hold their bfloat16 rounding: in bfloat16 where the layer computes
+        in the model's dtype and that dtype is bfloat16 (``Linear``,
+        ``Conv2d``), in float32 otherwise; filled by ``_refresh_teacher``.
+        None without the option."""
+        if not self.cfg.uda.teacher_bf16:
+            return None
+        teacher = copy.deepcopy(ema)
+        if teacher.dtype == torch.bfloat16:
+            for mod in teacher.modules():
+                if isinstance(mod, (Linear, Conv2d)):
+                    for p in mod.parameters(recurse=False):
+                        p.data = p.data.to(torch.bfloat16)
+        _refresh_teacher(teacher, ema)
+        return teacher
 
     def new_draws(self, state: DACSTrainState, batch: int) -> StepDraws:
         """The draws of step ``state.step`` from a generator on the device
@@ -217,7 +270,7 @@ class DACSTrainer:
             coin=coin, mix_scores=mix_scores, jitter_gate=jitter_gate,
             jitter=jitter, blur_gate=blur_gate, sigma=sigma,
             isr_dirs=isr_dirs, fwd=state.model.new_draws(
-                batch, generator=gen, device=dev))
+                batch, generator=gen, device=dev, with_isr=self.together))
 
     # ------------------------------------------------------------------
     # pieces
@@ -280,17 +333,22 @@ class DACSTrainer:
 
     @torch.no_grad()
     def _prepare(self, state: DACSTrainState, batch: dict, draws: StepDraws,
-                 ema_model: FusionEncoderDecoder) -> dict:
+                 ema_model: FusionEncoderDecoder,
+                 teacher: FusionEncoderDecoder | None = None) -> dict:
         """Steps 1-5: the EMA update of ``ema_model`` (in place; the step
-        passes ``state.ema_model``) and every tensor the two losses and the
-        debug grids need."""
+        passes ``state.ema_model``), the refresh of its bfloat16 copy
+        ``teacher`` (``uda.teacher_bf16``, else None) and every tensor the
+        two losses and the debug grids need (None where the train type has
+        no such input)."""
         cfg, u = self.cfg, self.cfg.uda
         src, tgt = batch["source"], batch["target"]
         day_image, day_label = src["image"], src["label"]
         night_image, night_isr = tgt["image"], tgt["isr"]
-        night_events = tgt["events"]
         self._mark("start")
-        day_events = self._day_events(state, src)
+        day_events = night_events = None
+        if self.has_events:
+            day_events = self._day_events(state, src)
+            night_events = tgt["events"]
         self._mark("cyclegan")
 
         apply_jitter = draws.jitter_gate > u.color_jitter_probability
@@ -300,14 +358,18 @@ class DACSTrainer:
         use_events = draws.coin > self._choice_thres(state.step)
 
         self._ema_update(ema_model, state.model, state.step)
+        if teacher is not None:
+            _refresh_teacher(teacher, ema_model)
         self._mark("ema")
 
-        ema_second = torch.where(use_events, night_events, night_isr)
-        teacher = ema_model.forward_logits(
-            night_image, ema_second, None, "default", resize_to_input=False,
+        second = (torch.where(use_events, night_events, night_isr)
+                  if self.has_events else night_isr)
+        teacher_model = ema_model if teacher is None else teacher
+        teacher_out = teacher_model.forward_logits(
+            night_image, second, None, "default", resize_to_input=False,
             streams=("fusion",), train=False, bn_train=True, bn_update=False)
         pseudo_label, pseudo_weight = pseudo_label_and_weight_coarse(
-            teacher["fusion_output"], night_image.shape[1:3],
+            teacher_out["fusion_output"], night_image.shape[1:3],
             threshold=u.pseudo_threshold, ignore_top=u.pseudo_weight_ignore_top,
             ignore_bottom=u.pseudo_weight_ignore_bottom)
         self._mark("teacher")
@@ -322,7 +384,8 @@ class DACSTrainer:
         mixed_lbl = torch.where(masks, day_label, pseudo_label)
         mixed_weight = one_mix(masks, torch.ones_like(pseudo_weight),
                                pseudo_weight)
-        mixed_events = one_mix(masks, day_events, night_events)
+        mixed_events = (one_mix(masks, day_events, night_events)
+                        if self.has_events else None)
         mixed_isr = self._mixed_isr(mixed_img, draws.isr_dirs)
         self._mark("mix")
         return dict(day_image=day_image, day_label=day_label,
@@ -334,6 +397,20 @@ class DACSTrainer:
                     mixed_img=mixed_img, mixed_lbl=mixed_lbl,
                     mixed_weight=mixed_weight, mixed_events=mixed_events,
                     mixed_isr=mixed_isr)
+
+    def _student_inputs(self, P: dict):
+        """(image, events, ISR) of the source and of the mixed forward."""
+        if self.together:
+            return ((P["day_image"], P["day_events"], P["day_isr"]),
+                    (P["mixed_img"], P["mixed_events"], P["mixed_isr"]))
+        if self.has_events:   # cs2dsec_image+events: the coin picks one
+            pick = P["use_events"]
+            return ((P["day_image"], torch.where(
+                        pick, P["day_events"], P["day_isr"]), None),
+                    (P["mixed_img"], torch.where(
+                        pick, P["mixed_events"], P["mixed_isr"]), None))
+        return ((P["day_image"], P["day_isr"], None),
+                (P["mixed_img"], P["mixed_isr"], None))
 
     def _device_batch(self, batch: dict) -> dict:
         """The batch on the device, wire-decoded (labels int32)."""
@@ -349,13 +426,13 @@ class DACSTrainer:
         batch = self._device_batch(batch)
         if draws is None:
             draws = self.new_draws(state, batch["source"]["image"].shape[0])
-        P = self._prepare(state, batch, draws,
-                          copy.deepcopy(state.ema_model))
+        ema = copy.deepcopy(state.ema_model)
+        P = self._prepare(state, batch, draws, ema, self._teacher_copy(ema))
         keys = ("day_image", "day_label", "day_isr", "day_events",
                 "night_image", "night_isr", "night_events", "pseudo_label",
                 "pseudo_weight", "masks", "mixed_img", "mixed_lbl",
                 "mixed_weight", "mixed_events", "mixed_isr", "use_events")
-        return {k: P[k] for k in keys}
+        return {k: P[k] for k in keys if P[k] is not None}
 
     # ------------------------------------------------------------------
     # the step
@@ -363,28 +440,28 @@ class DACSTrainer:
     def train_step(self, state: DACSTrainState, batch: dict,
                    draws: StepDraws | None = None):
         """One UDA iteration on ``batch`` ({'source': {image, img_self_res,
-        label, img_time_res}, 'target': {image, isr, events}}: normalized
-        NHWC float32 images, int32 labels; numpy arrays or tensors; or the
-        wire dict of such a batch). Updates ``state`` in place; returns
-        (state, logs) with the logs as 0-dim tensors on the device."""
+        label[, img_time_res]}, 'target': {image, isr[, events]}}, the
+        bracketed keys for the cs2dsec types: normalized NHWC float32
+        images, int32 labels; numpy arrays or tensors; or the wire dict of
+        such a batch). Updates ``state`` in place; returns (state, logs)
+        with the logs as 0-dim tensors on the device."""
         batch = self._device_batch(batch)
         if draws is None:
             draws = self.new_draws(state, batch["source"]["image"].shape[0])
-        P = self._prepare(state, batch, draws, state.ema_model)
+        P = self._prepare(state, batch, draws, state.ema_model, state.teacher)
+        src_in, mix_in = self._student_inputs(P)
         weights = self._loss_weights()
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)
 
-        logits = model.forward_train(P["day_image"], P["day_events"],
-                                     P["day_isr"], "default", draws.fwd)[0]
+        logits = model.forward_train(*src_in, "default", draws.fwd)[0]
         loss_src, logs_src = multi_stream_loss(logits, P["day_label"], None,
                                                **weights)
         self._mark("src_fwd")
         loss_src.backward()
         del logits
         self._mark("src_bwd")
-        logits = model.forward_train(P["mixed_img"], P["mixed_events"],
-                                     P["mixed_isr"], "default", draws.fwd)[0]
+        logits = model.forward_train(*mix_in, "default", draws.fwd)[0]
         loss_mix, logs_mix = multi_stream_loss(logits, P["mixed_lbl"],
                                                P["mixed_weight"], **weights)
         self._mark("mix_fwd")
@@ -393,6 +470,9 @@ class DACSTrainer:
         self._mark("mix_bwd")
 
         zero_missing_grads(model.parameters())
+        if self.cfg.optim.grad_clip is not None:
+            clip_grad_global_norm_(model.parameters(),
+                                   self.cfg.optim.grad_clip)
         set_lr(opt, state.schedules, state.step)
         opt.step()
         state.step += 1
@@ -403,3 +483,24 @@ class DACSTrainer:
                 "pseudo_weight": P["pseudo_weight"].mean(),
                 "use_events": P["use_events"].float()}
         return state, logs
+
+
+@torch.no_grad()
+def _refresh_teacher(teacher: FusionEncoderDecoder,
+                     ema: FusionEncoderDecoder):
+    """``teacher``'s parameters <- the bfloat16 rounding of ``ema``'s, in
+    the dtype each is kept in (``DACSTrainer._teacher_copy``): bfloat16 ones
+    by one multi-tensor copy, float32 ones through a bfloat16 staging
+    buffer and a second copy."""
+    pairs = list(zip(teacher.parameters(), ema.parameters(), strict=True))
+    direct = [(t, e) for t, e in pairs if t.dtype == torch.bfloat16]
+    staged = [(t, e) for t, e in pairs if t.dtype != torch.bfloat16]
+    if direct:
+        torch._foreach_copy_([t for t, _ in direct], [e for _, e in direct])
+    if staged:
+        flat = torch.empty(sum(e.numel() for _, e in staged),
+                           dtype=torch.bfloat16, device=staged[0][1].device)
+        views = [v.view_as(e) for v, (_, e) in zip(
+            flat.split([e.numel() for _, e in staged]), staged)]
+        torch._foreach_copy_(views, [e for _, e in staged])
+        torch._foreach_copy_([t for t, _ in staged], views)

@@ -144,10 +144,26 @@ def state_dict_to_tree(sd: dict, layout) -> dict:
 
 def _numpy(t) -> np.ndarray:
     """A copy, never a view: a CPU tensor's ``.numpy()`` shares its memory,
-    and the optimizer and BN update parameters and buffers in place."""
+    and the optimizer and BN update parameters and buffers in place. A
+    bfloat16 tensor (bfloat16 AdamW moments) comes out as the float32
+    array of its values, which holds them exactly."""
     if isinstance(t, torch.Tensor):
-        return t.detach().cpu().numpy().copy()
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy().copy()
     return np.array(t)
+
+
+def _moment_tensor(arr, like: torch.Tensor, dtype: torch.dtype):
+    """A new tensor of an AdamW moment in ``dtype`` on ``like``'s device
+    from a numpy array, a bfloat16 one (``ml_dtypes``, as JAX hands them
+    out) included: a copy, never a view of the caller's array, since AdamW
+    updates its moments in place."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)   # exact
+    return torch.tensor(arr, device=like.device).to(dtype)
 
 
 def jax_to_state_dict(variables) -> dict[str, np.ndarray]:
@@ -259,7 +275,10 @@ def load_pretrained_backbone(backbone: nn.Module, sd: dict) -> nn.Module:
 #        stacked, flax kernel layouts),
 #    "opt": {"head" | "backbone": {"count": int, "mu": tree, "nu": tree}}
 #        (the optax multi_transform AdamW moments of each group, the
-#        group's own leaves only, and its bias-correction count),
+#        group's own leaves only, and its bias-correction count; float32,
+#        or bfloat16 with optim.moment_dtype='bfloat16', which
+#        ``train_state_to_numpy`` hands out as their exact float32 values;
+#        optim.grad_clip's chain level holds no state),
 #    "cyclegan_params": the ResnetGenerator's flax tree, or None}
 
 def _cyclegan_keys(n_blocks: int) -> dict[tuple, str]:
@@ -332,6 +351,8 @@ def load_jax_train_state(state, jax_state: dict):
     params = _params_by_key(state.model)
     parts = {part: {id(p) for p in ps}
              for part, ps in _groups_by_part(state.optimizer).items()}
+    # bfloat16 with LowPrecisionAdamW, the parameter's dtype with AdamW
+    moment_dtype = getattr(state.optimizer, "moment_dtype", None)
     seen = set()
     for part, opt in jax_state["opt"].items():
         mu, nu = tree_to_state_dict(opt["mu"]), tree_to_state_dict(opt["nu"])
@@ -341,14 +362,11 @@ def load_jax_train_state(state, jax_state: dict):
             p = params[k]
             if id(p) not in parts[part]:
                 raise KeyError(f"{k} is not in the {part!r} group")
-            # copies: AdamW updates its moments in place, which must not
-            # write into the caller's arrays
             state.optimizer.state[p] = {
                 "step": torch.tensor(float(opt["count"]), dtype=torch.float32),
-                "exp_avg": torch.tensor(np.asarray(mu[k]), device=p.device,
-                                        dtype=p.dtype),
-                "exp_avg_sq": torch.tensor(np.asarray(nu[k]), device=p.device,
-                                           dtype=p.dtype)}
+                "exp_avg": _moment_tensor(mu[k], p, moment_dtype or p.dtype),
+                "exp_avg_sq": _moment_tensor(nu[k], p,
+                                             moment_dtype or p.dtype)}
             seen.add(k)
     if seen != set(params):
         raise KeyError(f"AdamW moments missing for "

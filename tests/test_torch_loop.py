@@ -39,7 +39,7 @@ from cmda_tpu_torch.models.cyclegan import ResnetGenerator, init_generator
 from cmda_tpu_torch.models.mit import MIT_VARIANTS, MixVisionTransformer
 from cmda_tpu_torch.tools import train as tcli
 from cmda_tpu_torch.train.loop import (TrainLoop, evaluate_fusion,
-                                       load_checkpoint)
+                                       load_checkpoint, save_checkpoint)
 from cmda_tpu_torch.uda.dacs import DACSTrainer
 from cmda_tpu_torch.utils import visualization as tvis
 
@@ -447,7 +447,7 @@ def test_cli_runs_resumes_and_refuses_unported_flags(tmp_path, capsys):
     assert loop.state.step == 3
     assert os.path.exists(tmp_path / "b" / "iter_3.pth")
 
-    for flag, item in (("--teacher-bf16", 2), ("--set", 3),
+    for flag, item in (("--fused-resize", 3), ("--set", 3),
                        ("--isr_edge", 3), ("--target-txt", 4),
                        ("--multi-host", 7)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -456,5 +456,95 @@ def test_cli_runs_resumes_and_refuses_unported_flags(tmp_path, capsys):
         tcli.parse_args(["--config", "tiny"])
     with pytest.raises(SystemExit):
         tcli.parse_args(["--synthetic", "--no-such-flag"])
-    with pytest.raises(SystemExit):
-        tcli.parse_args(["--synthetic", "--config", "cs2dz"])
+    args = tcli.parse_args(["--synthetic", "--config", "cs2dz",
+                            "--teacher-bf16"])
+    cfg = tcli.build_config(args)
+    assert cfg.model.train_type == "cs2dz_image+raw-isr"
+    assert cfg.uda.teacher_bf16
+
+
+def test_checkpoint_round_trip_bf16_moments(tmp_path):
+    """With bfloat16 AdamW moments (and grad_clip, teacher_bf16) a
+    checkpoint loads back bitwise, the moments still bfloat16 (torch's
+    ``Optimizer.load_state_dict`` casts them to the parameter's dtype on
+    the way in), and the loaded state steps as the live one does."""
+    cfg = _micro_cfg()
+    cfg = TC.replace(cfg, optim=TC.replace(cfg.optim, moment_dtype="bfloat16",
+                                           grad_clip=1.0),
+                     uda=TC.replace(cfg.uda, teacher_bf16=True))
+    trainer = DACSTrainer(cfg, device="cpu")
+    live = trainer.init_state()
+    src, tgt = _uda(cfg)
+    trainer.train_step(live, uda_batch(src, tgt, [0, 1]))
+    moments = [st[k] for st in live.optimizer.state.values()
+               for k in ("exp_avg", "exp_avg_sq")]
+    assert moments and all(m.dtype == torch.bfloat16 for m in moments)
+    path = str(tmp_path / "iter_1.pth")
+    save_checkpoint(live, path)
+    loaded = load_checkpoint(trainer.init_state(seed=1), path)
+    _assert_states_equal(_state_arrays(loaded), _state_arrays(live))
+    batch = uda_batch(src, tgt, [2, 3])
+    draws = trainer.new_draws(live, 2)
+    _, a = trainer.train_step(live, batch, draws)
+    _, b = trainer.train_step(loaded, batch, draws)
+    assert {k: float(v) for k, v in a.items()} == {
+        k: float(v) for k, v in b.items()}
+    _assert_states_equal(_state_arrays(loaded), _state_arrays(live))
+
+
+def _micro_dz():
+    """The cs2dz preset (train type, attention fusion, its UDA settings)
+    cut to the micro model at 64x64: what ``--config cs2dz`` runs here."""
+    cfg, dz = _micro_cfg(), TC.cs2dz_image_rawisr_b5()
+    return TC.replace(
+        cfg, name="micro_dz", uda=dz.uda,
+        model=TC.replace(cfg.model, train_type=dz.model.train_type,
+                         fusion=dz.model.fusion,
+                         fusion_isr=dz.model.fusion_isr),
+        data=TC.replace(cfg.data, target=dz.data.target),
+        log_interval=1, checkpoint_interval=2, eval_interval=2,
+        debug_img_interval=2)
+
+
+def test_cli_cs2dz_two_iterations(tmp_path, capsys, monkeypatch):
+    """``--config cs2dz --teacher-bf16`` for 2 iterations on the CPU (the
+    preset cut to the micro model): event-less synthetic data, the same
+    samples key for key as the JAX package's, finite losses, a checkpoint,
+    debug grids with the ISR as the second modality and an evaluation on
+    the target's ISR."""
+    cfg = _micro_dz()
+    monkeypatch.setitem(TC.PRESETS, "cs2dz", lambda: cfg)
+    dataset, val = tcli.build_datasets(cfg)
+    (w, h) = cfg.data.crop_size
+    jsrc = jsyn.SyntheticSource(crop_size=(w, h), with_time_res=False)
+    jtgt = jsyn.SyntheticTarget(crop_size=(w, h), with_events=False)
+    jval = jsyn.SyntheticTarget(crop_size=(w, h), length=8,
+                                with_events=False, test_mode=True)
+    for ours, ref in ((dataset.source, jsrc), (dataset.target, jtgt),
+                      (val, jval)):
+        assert len(ours) == len(ref)
+        for i in (0, 5):
+            _assert_tree_equal(ours[i], ref[i])
+    assert set(dataset.source[0]) == {"image", "img_self_res", "label"}
+    assert set(dataset.target[0]) == {"image", "isr"}
+
+    work = tmp_path / "dz"
+    loop = tcli.main(["--config", "cs2dz", "--synthetic", "--device", "cpu",
+                      "--num-workers", "2", "--max-iters", "2",
+                      "--work-dir", str(work), "--teacher-bf16"])
+    done = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert done == {"done": True, "step": 2, "work_dir": str(work)}
+    assert loop.cfg.uda.teacher_bf16 and loop.state.teacher is not None
+    assert loop.state.cyclegan is None
+    with open(loop.log_path) as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if "loss" in r]
+    assert [r["iter"] for r in steps] == [1, 2]
+    assert "src/loss_isr" not in steps[0] and "src/loss_events" in steps[0]
+    assert all(np.isfinite(v) for r in steps for v in r.values()
+               if isinstance(v, float))
+    files = sorted(os.listdir(work))
+    assert "iter_2.pth" in files
+    assert [f for f in files if f.startswith("test_results_2_")]
+    assert sorted(os.listdir(work / "class_mix_debug")) == [
+        "000002_0.png", "000002_1.png"]

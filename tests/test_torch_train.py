@@ -405,17 +405,22 @@ def _configs():
     return JC.replace(jcfg, model=JC.replace(jcfg.model, remat=False)), cut(TC)
 
 
-def _jax_init_state(jtr, cfg, cyclegan_params):
+def _jax_init_state(jtr, cfg, cyclegan_params=None):
     """A JAX DACSTrainState from seeded numpy (``random_variables``) instead
     of ``init_state``, whose init would compile (or, eager, take minutes);
-    the teacher is a copy of the student and the AdamW moments are 0."""
+    the teacher is a copy of the student and the AdamW moments are 0. The
+    model is initialised as ``init_state`` does: mode 'fusion_all' with the
+    ISR input where it has a ``fusion_isr`` module, 'default' without."""
     h, w = cfg.data.crop_size
     img = jnp.zeros((cfg.data.batch_size, h, w, 3))
+    isr, mode = ((img, "fusion_all") if cfg.model.fusion_isr
+                 else (None, "default"))
     v = random_variables(lambda: jtr.model.init(
-        jax.random.PRNGKey(0), img, img, img, mode="fusion_all",
+        jax.random.PRNGKey(0), img, img, isr, mode=mode,
         method=jtr.model.forward_logits), seed=13)
     jtr.tx = joptim.make_optimizer(v["params"], cfg.optim)
-    jtr.cyclegan = jcyc.generator_from_params(cyclegan_params)
+    if cyclegan_params is not None:
+        jtr.cyclegan = jcyc.generator_from_params(cyclegan_params)
     opt = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype),
                        jax.eval_shape(jtr.tx.init, v["params"]))
     return DACSTrainState(
@@ -439,16 +444,27 @@ def _drop_masked(tree):
     return out
 
 
-def _jax_state_numpy(js):
+def _opt_layout(opt_state):
+    """The port's JAX layout of ``make_optimizer``'s state: each group's
+    count and moments (``scale_by_adam`` leads each group's chain, float32
+    or bfloat16); with ``grad_clip`` the multi_transform state sits behind
+    the clip's empty one in an ``optax.chain``."""
+    if not hasattr(opt_state, "inner_states"):
+        [opt_state] = [s for s in opt_state if hasattr(s, "inner_states")]
     opt = {}
-    for part, ms in js.opt_state.inner_states.items():
+    for part, ms in opt_state.inner_states.items():
         adam = ms.inner_state[0]
         opt[part] = {"count": int(adam.count), "mu": _drop_masked(adam.mu),
                      "nu": _drop_masked(adam.nu)}
+    return opt
+
+
+def _jax_state_numpy(js):
     tree = functools.partial(jax.tree.map, np.asarray)
     return {"step": int(js.step), "params": tree(js.params),
             "batch_stats": tree(js.batch_stats),
-            "ema_params": tree(js.ema_params), "opt": opt,
+            "ema_params": tree(js.ema_params),
+            "opt": _opt_layout(js.opt_state),
             "cyclegan_params": tree(js.cyclegan_params)}
 
 
@@ -626,4 +642,4 @@ def test_unported_flags_raise():
             tcfg.uda, isr_another_fusion=True)), device="cpu")
     with pytest.raises(NotImplementedError, match="train_type"):
         DACSTrainer(TC.replace(tcfg, model=TC.replace(
-            tcfg.model, train_type="cs2dz_image+raw-isr")), device="cpu")
+            tcfg.model, train_type="cs2dz_image+d2n-isr")), device="cpu")

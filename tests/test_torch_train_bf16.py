@@ -644,13 +644,14 @@ def test_cli_bf16_two_iterations(tmp_path, capsys):
 def test_unported_options_still_raise_in_bf16():
     _, tcfg = _bf16_configs()
     DACSTrainer(tcfg, device="cpu")   # bfloat16 itself is ported
-    with pytest.raises(NotImplementedError, match="teacher_bf16"):
+    with pytest.raises(NotImplementedError, match="stacked_stream_ce"):
         DACSTrainer(TC.replace(tcfg, uda=TC.replace(
-            tcfg.uda, teacher_bf16=True)), device="cpu")
-    with pytest.raises(NotImplementedError, match="moment_dtype"):
-        DACSTrainer(TC.replace(tcfg, optim=TC.replace(
-            tcfg.optim, moment_dtype="bfloat16")), device="cpu").init_state()
+            tcfg.uda, stacked_stream_ce=True)), device="cpu")
+    with pytest.raises(NotImplementedError, match="head_batched_train"):
+        DACSTrainer(TC.replace(tcfg, model=TC.replace(
+            tcfg.model, head_batched_train=True)), device="cpu")
     with pytest.raises(NotImplementedError, match="item 2"):
-        tcli.parse_args(["--synthetic", "--teacher-bf16"])
+        DACSTrainer(TC.replace(tcfg, uda=TC.replace(
+            tcfg.uda, shift_type="all")), device="cpu")
     with pytest.raises(ValueError, match="float16"):
         DACSTrainer(TC.replace(tcfg, dtype="float16"), device="cpu")

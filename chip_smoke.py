@@ -77,11 +77,23 @@ Phases, any failure exits non-zero:
      points (the CE with the pseudo weight's cropped rows, the ISR
      rightdown with the DarkZurich parameters) are held and timed in 3 and
      5;
-  9. one JSON line of per-kernel results, the nvidia-smi line, and last
+  9. the test path of the cs2dz MiT-b5 model (``phase_test``): a port
+     checkpoint (student and EMA teacher) and a DarkZurich tree of four
+     1920x1080 val and test frames written on the spot, driven through
+     ``cmda_tpu_torch.tools.test.main`` (whole mode on the image and the
+     fusion stream, slide, aug-test, ``--use-teacher``, the submission of
+     both streams) and ``tools.infer.main`` (two 1080x1920 PNGs, fusion),
+     each run's launches counted; slide against a crop-by-crop loop, the
+     teacher against the EMA parameters with the student's BN buffers, the
+     submission PNGs against the whole-mode prediction; the path's times
+     and peak memory; the argmax and ISR kernels at its points are held
+     and timed in 3;
+ 10. one JSON line of per-kernel results, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -302,7 +314,15 @@ ARGMAX_POINTS = {
     # runs in float32), the teacher with the prob, the accuracies without
     "step_b8_prob": ((8, 128, 128, 19), (512, 512), True),
     "step_b8": ((8, 128, 128, 19), (512, 512), False),
+    # the test path (cs2dz): whole-mode evaluation of a 540x960 frame, the
+    # submission's batch of 4, and infer's 1080x1920 frame padded to 1088
+    "test_whole": ((1, 135, 240, 19), (540, 960), False),
+    "test_submit_b4": ((4, 135, 240, 19), (540, 960), False),
+    "test_infer": ((1, 272, 480, 19), (1088, 1920), False),
 }
+# the points drawn after every other input of port_kernel_times, so that
+# the older points keep the inputs earlier runs timed
+LATE_ARGMAX_POINTS = ("test_whole", "test_submit_b4", "test_infer")
 # the ISR where the main paths launch it: name -> [B, H, W]
 ISR_POINTS = {
     "serving_b1": (1, 440, 640),     # image-only inference_segmentor
@@ -315,6 +335,9 @@ ISR_POINTS = {
 # fixed direction (rightdown, index 2) with its uda.isr_params (the
 # DarkZurich values: range 1-100, threshold 0.01, clip 0.1, shift 3)
 ISR_DZ_STEP = (2, 512, 512)
+# infer's image-only ISR of a 1080x1920 frame with cs2dz --output-type
+# fusion: rightdown, the preset's data.target_isr (the DarkZurich values)
+ISR_TEST_INFER = (1, 1080, 1920)
 # the points whose numbers the kernels line gives at its top level: those
 # earlier runs reported there
 ARGMAX_REPORTED_POINT = "serving_b8_prob"
@@ -368,12 +391,14 @@ def port_kernel_times(earlier=False):
         "ce_dx": (lambda: fused_resize_ce_dx(g, x, lbl, wgt, lse),
                   names("fused_resize_ce_dx"), (g, x, lbl, wgt, lse)),
     }
-    for name, (shape, size, with_prob) in ARGMAX_POINTS.items():
+    def argmax_call(shape, size, with_prob):
         xa = torch.randn(shape, generator=gen, device=dev)
-        calls[f"argmax_{name}"] = (
-            lambda xa=xa, size=size, with_prob=with_prob: fused_resize_argmax(
-                xa, size, with_prob=with_prob),
+        return (
+            lambda: fused_resize_argmax(xa, size, with_prob=with_prob),
             names("fused_resize_argmax"), (xa, size, with_prob))
+    for name, (shape, size, with_prob) in ARGMAX_POINTS.items():
+        if name not in LATE_ARGMAX_POINTS:
+            calls[f"argmax_{name}"] = argmax_call(shape, size, with_prob)
     kw = _isr_kw(C.cs2dsec_image_events_b5().data.target_isr)
     for name, (b, h, w) in ISR_POINTS.items():
         gray = _smooth_gray(gen, b, h, w, dev)
@@ -409,6 +434,16 @@ def port_kernel_times(earlier=False):
                 lambda xd=xd, lp=lp, lse_d=lse_d: fused_resize_ce_dweight(
                     g, xd, lp, lse_d), names("fused_resize_ce_dweight"),
                 (g, xd, lp, wp, lse_d))
+    # the test path's points, drawn last
+    for name in LATE_ARGMAX_POINTS:
+        calls[f"argmax_{name}"] = argmax_call(*ARGMAX_POINTS[name])
+    gray_t = _smooth_gray(gen, *ISR_TEST_INFER, dev)
+    dirs_t = torch.full((ISR_TEST_INFER[0],), 2, dtype=torch.int32,
+                        device=dev)   # rightdown
+    kw_t = _isr_kw(C.cs2dz_image_rawisr_b5().data.target_isr)
+    calls["isr_test_infer"] = (
+        lambda: batched_isr(gray_t, dirs_t, **kw_t), names("batched_isr"),
+        (gray_t, dirs_t, kw_t))
     out = {}
     for k, (fn, nm, args) in calls.items():
         dev_ms, traces = device_ms(fn, nm)
@@ -505,6 +540,16 @@ def phase_argmax(gen, times):
     for name, (shape, size, with_prob) in ARGMAX_POINTS.items():
         t = times[f"argmax_{name}"]
         xa = t["args"][0]
+        if name in LATE_ARGMAX_POINTS:   # held here, on the timed inputs
+            label, _ = _bitwise_repeat(
+                lambda: fused_resize_argmax(xa, size, with_prob=with_prob),
+                f"argmax {name}")
+            n_bad = check_labels(
+                label, resize_argmax(xa, size, with_prob=False)[0],
+                resize_bilinear(xa, size), f"argmax {name}")
+            print(f"argmax {name} {shape}->{size} f32: label mismatches "
+                  f"{n_bad} (all at near ties); bitwise equal on a second "
+                  "run", flush=True)
         bound_ms, bound_by = argmax_bound(shape, size, with_prob)
         points[name] = {
             "device_ms": t["device_ms"], "traces": t["traces"], "ms": t["ms"],
@@ -581,9 +626,20 @@ def phase_isr(gen, times):
         worst = max(worst, err)
 
     points = {}
-    for name, (b, h, w) in {**ISR_POINTS, "dz_step": ISR_DZ_STEP}.items():
+    for name, (b, h, w) in {**ISR_POINTS, "dz_step": ISR_DZ_STEP,
+                            "test_infer": ISR_TEST_INFER}.items():
         t = times[f"isr_{name}"]
         gray, dirs, kw = t["args"]
+        if name == "test_infer":   # held here, on the timed inputs
+            out = _bitwise_repeat(lambda: batched_isr(gray, dirs, **kw),
+                                  f"isr {name}")
+            err = float((out - batched_isr_plain(gray, dirs, **kw)).abs()
+                        .max())
+            print(f"isr {name} [{b},{h},{w}] cs2dz rightdown: max|d| "
+                  f"{err:.3g}; bitwise equal on a second run", flush=True)
+            if not err <= ISR_TOL:
+                fail(f"isr {name}: error {err} over {ISR_TOL}")
+            worst = max(worst, err)
         bound_ms, bound_by = isr_bound(b, h, w)
         points[name] = {
             "device_ms": t["device_ms"], "traces": t["traces"], "ms": t["ms"],
@@ -1893,6 +1949,365 @@ def phase_loop(preset="cs2dsec"):
     return totals
 
 
+TEST_FRAMES = 4
+TEST_FRAME = (1080, 1920)    # DarkZurich's frames, resized to 540x960
+TEST_SIZE = (540, 960)
+SLIDE_TOL = 1e-5             # of max|logit|: the batched vs the crop loop
+# whole-mode launches of the test path: argmax per evaluation batch (batch
+# 1), per submission batch (4 frames) and per infer image; ISR per infer
+# image (evaluation's ISR is the dataset's, on the host)
+TEST_EVAL_LAUNCHES = {"fused_resize_argmax": TEST_FRAMES, "batched_isr": 0}
+
+
+def _write_dark_zurich(root):
+    """A DarkZurich tree of TEST_FRAMES night frames at 1920x1080 in the
+    val split (with ``_gt_labelTrainIds`` labels) and in the test split:
+    dark class-keyed blocks with noise, from a seed."""
+    from PIL import Image
+    g = np.random.default_rng(9)
+    h, w = TEST_FRAME
+    palette = g.integers(5, 70, (19, 3))
+    for split in ("val", "test"):
+        img_dir = os.path.join(root, "rgb_anon", split, "night", "seq01")
+        os.makedirs(img_dir)
+        for i in range(TEST_FRAMES):
+            name = f"seq01_frame_{i:06d}_rgb_anon.png"
+            blocks = g.integers(0, 19, (h // 120 + 1, w // 120 + 1))
+            lbl = np.repeat(np.repeat(blocks, 120, 0), 120, 1)[:h, :w]
+            img = palette[lbl] + g.integers(0, 12, (h, w, 3))
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(img_dir, name))
+            if split == "val":
+                gt_dir = os.path.join(root, "gt", "val", "night", "seq01")
+                os.makedirs(gt_dir, exist_ok=True)
+                Image.fromarray(lbl.astype(np.uint8)).save(os.path.join(
+                    gt_dir, name.replace("_rgb_anon", "_gt_labelTrainIds")))
+    return root
+
+
+def phase_test():
+    """The test path of the cs2dz MiT-b5 model at full width: a port
+    checkpoint (student from seed 0 with BN statistics moved off their
+    init, teacher from seed 1) and a DarkZurich tree written here, driven
+    through ``cmda_tpu_torch.tools.test.main`` (whole mode on the image and
+    the fusion stream, slide, aug-test, the teacher, the submission of
+    both streams) and ``cmda_tpu_torch.tools.infer.main`` (two 1080x1920
+    PNGs, fusion) on cuda, each with the launch counters set to 0 just
+    before it; checks of each against a version built here; then the
+    path's times and peak memory. Returns the launches of all the runs."""
+    import torch
+    from PIL import Image
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.apis import (build_model, init_segmentor,
+                                     inference_segmentor, predict_labels,
+                                     select_logits)
+    from cmda_tpu_torch.data.dark_zurich import DarkZurichDataset
+    from cmda_tpu_torch.models.segmentor import slide_inference
+    from cmda_tpu_torch.ops.resize import resize_bilinear
+    from cmda_tpu_torch.tools import infer as infer_cli
+    from cmda_tpu_torch.tools import test as test_cli
+    from cmda_tpu_torch.train import loop as loop_mod
+    from cmda_tpu_torch.train.loop import TTA_SCALES, evaluate_fusion
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    counters = _kernel_counters()
+    totals = {k: 0 for k in counters}
+    cfg = C.cs2dz_image_rawisr_b5()
+    timings = {}
+
+    def counted(what, fn, expect=None):
+        """fn() with the launch counters set to 0 just before it and read
+        just after; the argmax and ISR counts must equal ``expect``."""
+        for f in counters.values():
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: f.launches for k, f in counters.items()}
+        for k, v in got.items():
+            totals[k] += v
+        short = {k: got[k] for k in ("fused_resize_argmax", "batched_isr")}
+        if expect is not None and short != expect:
+            fail(f"test {what}: launches {short}, expected {expect}")
+        print(f"test {what}: launches {short}", flush=True)
+        return out
+
+    def recorded(fn):
+        """fn() and the predictions evaluate_fusion scored in it."""
+        preds = []
+        real = loop_mod.intersect_and_union
+
+        def rec(pred, label, num_classes):
+            preds.append(np.array(pred))
+            return real(pred, label, num_classes)
+        with mock.patch.object(loop_mod, "intersect_and_union", rec):
+            out = fn()
+        return out, preds
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = _write_dark_zurich(os.path.join(tmp, "dz"))
+        student = build_model(cfg, "cuda", seed=0)
+        teacher = build_model(cfg, "cuda", seed=1)
+        bn_gen = torch.Generator(device="cuda")
+        bn_gen.manual_seed(2)
+        with torch.no_grad():   # student statistics off the teacher's
+            for name, buf in student.named_buffers():
+                if name.endswith("running_mean"):
+                    buf.add_(0.1 * torch.randn(buf.shape, generator=bn_gen,
+                                               device="cuda"))
+                elif name.endswith("running_var"):
+                    buf.mul_(0.5 + torch.rand(buf.shape, generator=bn_gen,
+                                              device="cuda"))
+        ckpt = os.path.join(tmp, "iter_test.pth")
+        torch.save({"state_dict": student.state_dict(),
+                    "ema_state_dict": teacher.state_dict()}, ckpt)
+        del student
+        timings["setup_s"] = time.perf_counter() - t0
+        base = ["--config", "cs2dz", "--checkpoint", ckpt, "--target-root",
+                root, "--device", "cuda"]
+
+        def test_main(*extra):
+            # the summaries it prints go to chiprun_out/, the checks here
+            # print one line each
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                got = test_cli.main(base + list(extra))
+            log_dir = os.path.join(os.path.dirname(os.path.abspath(
+                __file__)), "chiprun_out")
+            os.makedirs(log_dir, exist_ok=True)
+            with open(os.path.join(log_dir, "test_cli.log"), "a") as f:
+                f.write(" ".join(extra) + "\n" + out.getvalue())
+            return got
+
+        # --- whole mode, the image and the fusion stream ------------------
+        whole = {}
+        for stream in ("image", "fusion"):
+            summary, whole[stream] = recorded(lambda: counted(
+                f"whole {stream}", lambda: test_main("--output-type", stream),
+                TEST_EVAL_LAUNCHES))
+            if not math.isfinite(summary["mIoU"]) or len(whole[stream]) != (
+                    TEST_FRAMES):
+                fail(f"test whole {stream}: {summary['mIoU']}, "
+                     f"{len(whole[stream])} predictions")
+            print(f"test whole {stream}: mIoU {summary['mIoU']:.5f}",
+                  flush=True)
+
+        # --- slide ----------------------------------------------------------
+        summary, slide_preds = recorded(lambda: counted(
+            "slide", lambda: test_main("--inference", "slide"),
+            {"fused_resize_argmax": 0, "batched_isr": 0}))
+        if not math.isfinite(summary["mIoU"]):
+            fail(f"test slide: mIoU {summary['mIoU']}")
+        seg = init_segmentor(cfg, ckpt, device="cuda", output="fusion")
+        val = DarkZurichDataset(root, split="val",
+                                isr_params=cfg.data.target_isr,
+                                outputs=("image", "isr", "label"))
+
+        def frame(dataset, i):
+            s = dataset[i]
+            return torch.cat([torch.from_numpy(np.asarray(s[k], np.float32))
+                              for k in ("image", "isr")], -1)[None].cuda()
+
+        def crop_logits(x):
+            return resize_bilinear(select_logits(
+                seg.model, x[..., :3], x[..., 3:], "fusion"), x.shape[1:3])
+
+        def slide(x):
+            with torch.no_grad():
+                return slide_inference(crop_logits, x, crop_size=(512, 512),
+                                       stride=(341, 341), num_classes=19)
+
+        both = frame(val, 0)
+        got = _bitwise_repeat(lambda: slide(both), "test slide logits")
+        h, w = TEST_SIZE
+        ref = torch.zeros_like(got)
+        count = torch.zeros_like(got[..., :1])
+        n_crops = 0
+        with torch.no_grad():   # reference encoder_decoder.py:175-218
+            for hi in range((h - 512 + 340) // 341 + 1):
+                for wi in range((w - 512 + 340) // 341 + 1):
+                    y2, x2 = min(hi * 341 + 512, h), min(wi * 341 + 512, w)
+                    y1, x1 = max(y2 - 512, 0), max(x2 - 512, 0)
+                    ref[:, y1:y2, x1:x2] += crop_logits(
+                        both[:, y1:y2, x1:x2])
+                    count[:, y1:y2, x1:x2] += 1
+                    n_crops += 1
+        ref /= count
+        err = float((got - ref).abs().max() / ref.abs().max())
+        print(f"test slide: {n_crops} crops at 540x960; logits within "
+              f"{err:.3g} of max|logit| of the crop-by-crop loop (tolerance "
+              f"{SLIDE_TOL:g}); bitwise equal on a second run", flush=True)
+        if n_crops != 6 or not err <= SLIDE_TOL:
+            fail(f"test slide: {n_crops} crops, error {err}")
+        if not np.array_equal(got.argmax(-1)[0].cpu().numpy(),
+                              slide_preds[0]):
+            n_bad = int((got.argmax(-1)[0].cpu().numpy()
+                         != slide_preds[0]).sum())
+            print(f"test slide: {n_bad} labels of frame 0 differ between "
+                  "tools.test and this run's slide", flush=True)
+        timings["slide_err_rel"] = err
+
+        # --- aug-test -------------------------------------------------------
+        summary, aug_preds = recorded(lambda: counted(
+            "aug-test", lambda: test_main("--aug-test"),
+            {"fused_resize_argmax": 0, "batched_isr": 0}))
+        if not math.isfinite(summary["mIoU"]):
+            fail(f"test aug-test: mIoU {summary['mIoU']}")
+        agree = float(np.mean([np.mean(a == b) for a, b in
+                               zip(aug_preds, whole["fusion"])]))
+        timings["aug_test_whole_agreement"] = agree
+        print(f"test aug-test: mIoU {summary['mIoU']:.5f}; labels equal to "
+              f"whole mode's on {agree:.4f} of the pixels (predicted 0.5-0.9"
+              ", not gated at random weights)", flush=True)
+
+        # --- the teacher on the student's BN statistics --------------------
+        summary, teacher_preds = recorded(lambda: counted(
+            "use-teacher", lambda: test_main("--use-teacher"),
+            TEST_EVAL_LAUNCHES))
+        sd = torch.load(ckpt, map_location="cuda", weights_only=True)
+        ref_teacher = build_model(cfg, "cuda", seed=3)
+        ref_teacher.load_state_dict(sd["ema_state_dict"])
+        with torch.no_grad():
+            students = dict(seg.model.named_buffers())
+            for name, buf in ref_teacher.named_buffers():
+                buf.copy_(students[name])
+        del sd
+        _, ref_preds = recorded(lambda: evaluate_fusion(ref_teacher, val))
+        same = all(np.array_equal(a, b)
+                   for a, b in zip(teacher_preds, ref_preds))
+        differs = not all(np.array_equal(a, b)
+                          for a, b in zip(teacher_preds, whole["fusion"]))
+        print(f"test use-teacher: predictions equal to the EMA parameters "
+              f"with the student's BN buffers: {same}; differ from the "
+              f"student's: {differs}", flush=True)
+        if not (same and differs):
+            fail("test use-teacher: the teacher's predictions")
+        del ref_teacher
+
+        # --- the submission, image and fusion -------------------------------
+        test_set = DarkZurichDataset(root, split="test",
+                                     isr_params=cfg.data.target_isr)
+        batch = [test_set[i] for i in range(TEST_FRAMES)]
+        img4 = torch.from_numpy(np.stack([b["image"] for b in batch])).cuda()
+        isr4 = torch.from_numpy(np.stack([b["isr"] for b in batch]).astype(
+            np.float32)).cuda()
+        for stream in ("image", "fusion"):
+            sub = os.path.join(tmp, f"sub_{stream}")
+            info = counted(f"submission {stream}", lambda: test_main(
+                "--submit-to-website", "--show-dir", sub,
+                *(("--output-type", "fusion") if stream == "fusion" else ())),
+                {"fused_resize_argmax": 1, "batched_isr": 0})
+            if info["stream"] != stream:
+                fail(f"test submission: stream {info['stream']}")
+            with torch.no_grad():
+                pred = predict_labels(select_logits(
+                    seg.model, img4, isr4 if stream == "fusion" else None,
+                    stream), TEST_SIZE).cpu().numpy()
+            for j, path in enumerate(test_set.files):
+                name = os.path.basename(path)
+                arrs = {}
+                for d in ("labelTrainIds", "labelTrainIds_invalid",
+                          "confidence"):
+                    if sorted(os.listdir(os.path.join(sub, d))) != sorted(
+                            os.path.basename(f) for f in test_set.files):
+                        fail(f"test submission {stream}: {d} holds "
+                             f"{os.listdir(os.path.join(sub, d))}")
+                    with Image.open(os.path.join(sub, d, name)) as im:
+                        if im.size != (1920, 1080):
+                            fail(f"test submission {d}/{name}: {im.size}")
+                        arrs[d] = np.asarray(im)
+                lab, conf = arrs["labelTrainIds"], arrs["confidence"]
+                want = np.repeat(np.repeat(pred[j], 2, 0), 2, 1)
+                if not (lab.dtype == np.uint8 and lab.max() < 19
+                        and np.array_equal(lab, want)
+                        and np.array_equal(arrs["labelTrainIds_invalid"], lab)
+                        and conf.dtype == np.uint16 and conf.min() == 65535
+                        and conf.max() == 65535):
+                    fail(f"test submission {stream} {name}: labels "
+                         f"{lab.dtype} max {lab.max()}, equal to the NEAREST"
+                         f" whole-mode prediction: {np.array_equal(lab, want)}"
+                         f", confidence {conf.dtype} {conf.min()}-"
+                         f"{conf.max()}")
+            sec = info["seconds"]
+            timings[f"submission_{stream}_frame_ms"] = {
+                k: v / TEST_FRAMES * 1e3 for k, v in sec.items()}
+            print(f"test submission {stream}: 3 dirs x {TEST_FRAMES} "
+                  "1920x1080 PNGs, labels equal to the whole-mode prediction"
+                  " upsampled NEAREST, confidence all 65535; a frame: "
+                  + ", ".join(f"{k} {v / TEST_FRAMES * 1e3:.2f} ms"
+                              for k, v in sec.items()), flush=True)
+
+        # --- infer: two 1080x1920 PNGs, fusion ------------------------------
+        pngs = [os.path.join(root, "rgb_anon", "val", "night", "seq01",
+                             os.path.basename(f)) for f in val.files[:2]]
+        out_dir = os.path.join(tmp, "infer")
+        preds = counted("infer", lambda: infer_cli.main(
+            pngs + ["--config", "cs2dz", "--checkpoint", ckpt,
+                    "--output-type", "fusion", "--out-dir", out_dir,
+                    "--device", "cuda"]),
+            {"fused_resize_argmax": 2, "batched_isr": 2})
+        for path in pngs:
+            stem = os.path.splitext(os.path.basename(path))[0]
+            with Image.open(os.path.join(out_dir, f"{stem}_pred.png")) as im:
+                png = np.asarray(im)
+            if not (png.shape == TEST_FRAME and png.max() < 19
+                    and np.array_equal(png, preds[path])):
+                fail(f"test infer {stem}: {png.shape} max {png.max()}")
+        print("test infer: two 1080x1920 predictions written", flush=True)
+
+        # --- times ----------------------------------------------------------
+        x = frame(val, 0)
+        img, isr = x[..., :3].contiguous(), x[..., 3:].contiguous()
+        for stream in ("image", "fusion"):
+            def whole_fn():
+                with torch.no_grad():
+                    return predict_labels(select_logits(
+                        seg.model, img, isr, stream), TEST_SIZE)
+            timings[f"whole_{stream}_ms"] = wall_ms(whole_fn)
+        timings["slide_540x960_ms"] = wall_ms(
+            lambda: slide(x).argmax(-1), warmup=1, reps=3)
+        big = DarkZurichDataset(root, split="val", image_resize_size=(1920,
+                                                                      1080),
+                                isr_params=cfg.data.target_isr)
+        xb = frame(big, 0)
+        timings["slide_1080x1920_ms"] = wall_ms(
+            lambda: slide(xb).argmax(-1), warmup=1, reps=3)
+        del xb
+
+        def aug():
+            from cmda_tpu_torch.models.segmentor import (
+                multi_scale_flip_inference)
+            with torch.no_grad():
+                return multi_scale_flip_inference(
+                    crop_logits, x, scales=TTA_SCALES, flip=True).argmax(-1)
+        timings["aug_test_540x960_ms"] = wall_ms(aug, warmup=1, reps=3)
+        timings["infer_1080x1920_ms"] = wall_ms(
+            lambda: inference_segmentor(seg, pngs[0]), warmup=1, reps=3)
+        del seg
+    timings["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    timings["phase_s"] = time.perf_counter() - t_phase
+    smi = smi_line()
+    for k in ("whole_image_ms", "whole_fusion_ms", "slide_540x960_ms",
+              "slide_1080x1920_ms", "aug_test_540x960_ms",
+              "infer_1080x1920_ms"):
+        print(f"test timing {k}: {timings[k]:.2f} ms a frame ({smi})",
+              flush=True)
+    for stream in ("image", "fusion"):
+        t = timings[f"submission_{stream}_frame_ms"]
+        print(f"test timing submission {stream}: {t['model']:.2f} ms device"
+              f" (to the labels on the host), {t['png']:.2f} ms host PNGs, "
+              f"{t['load']:.2f} ms loading, a frame ({smi})", flush=True)
+    print(f"test: peak {timings['peak_gib']:.2f} GiB, phase "
+          f"{timings['phase_s']:.1f} s, launches {totals} ({smi})",
+          flush=True)
+    if min(totals["fused_resize_argmax"], totals["batched_isr"]) == 0:
+        fail(f"test: a kernel of the test path never launched: {totals}")
+    print("test timings " + json.dumps(timings), flush=True)
+    return totals
+
+
 def device_time_only(root):
     """``--device-time ROOT``: build the kernels of the checkout at ROOT
     (another commit unpacked beside this one, say) and print one JSON line
@@ -1975,6 +2390,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     dz_loop_launches = phase_loop("cs2dz")
+    gc.collect()
+    torch.cuda.empty_cache()
+    test_launches = phase_test()
     for r in results:
         # the serving kernels keep their serving-path count under
         # "launches"; the training path's count goes beside it, and the
@@ -1989,6 +2407,7 @@ def main():
         r["launches_loop"] = loop_launches[r["name"]]
         r["launches_train_cs2dz"] = dz_launches[r["name"]]
         r["launches_loop_cs2dz"] = dz_loop_launches[r["name"]]
+        r["launches_test"] = test_launches[r["name"]]
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi, flush=True)

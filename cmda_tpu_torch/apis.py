@@ -1,8 +1,11 @@
 """Single-image inference API (mirrors cmda_tpu.apis).
 
     from cmda_tpu_torch.apis import init_segmentor, inference_segmentor
-    seg = init_segmentor("cs2dsec")                  # on cuda, random weights
+    seg = init_segmentor("cs2dz")                    # on cuda, random weights
+    seg = init_segmentor("cs2dz", "work_dirs/dz/iter_40000.pth",
+                         use_teacher=True, overrides=["seed=1"])
     pred = inference_segmentor(seg, "night.png")     # [H, W] int32
+    inference_segmentor(seg, "night.png", out_file="panel.png")
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU the default raises. The prediction comes from the stride-4 logits
@@ -135,21 +138,39 @@ class Segmentor:
         return full.cpu().numpy(), pred.cpu().numpy()
 
 
-def init_segmentor(config="cs2dsec", torch_checkpoint: str | None = None,
+def load_weights(model: FusionEncoderDecoder, checkpoint: str,
+                 use_teacher: bool = False) -> FusionEncoderDecoder:
+    """Fill ``model`` from ``checkpoint``: the port's own ``iter_<n>.pth``
+    (``train/loop.py::save_checkpoint``: the student in ``state_dict``, the
+    EMA teacher in ``ema_state_dict``), or a reference ``iter_40000.pth``
+    (mmseg keys, its student taken). ``use_teacher`` takes the port
+    checkpoint's EMA parameters with the student's BatchNorm statistics, as
+    the JAX package evaluates the teacher; a reference checkpoint's teacher
+    is its student, as in the JAX package (``cmda_tpu/apis.py:126``)."""
+    from .utils.weights import load_reference_state_dict
+    ckpt = torch.load(checkpoint, map_location="cpu", weights_only=False)
+    sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
+    if use_teacher and "ema_state_dict" in ckpt:
+        params = {k for k, _ in model.named_parameters()}
+        ema = ckpt["ema_state_dict"]
+        sd = {k: (ema[k] if k in params else v) for k, v in sd.items()}
+    return load_reference_state_dict(model, sd)
+
+
+def init_segmentor(config="cs2dz", checkpoint: str | None = None,
                    device="cuda", output: str | None = None,
-                   seed: int | None = None) -> Segmentor:
-    """A Segmentor from a preset name (or RunConfig) with random weights
-    from ``seed``, or a reference ``iter_40000.pth`` state_dict. Default
-    output stream: 'fusion' for cs2dsec, 'image' for cs2dz."""
+                   seed: int | None = None, use_teacher: bool = False,
+                   overrides=()) -> Segmentor:
+    """A Segmentor from a preset name (or RunConfig) with the dotted
+    ``overrides`` (``KEY=VAL``, as the CLIs' ``--set``) applied: random
+    weights from ``seed`` (default the config's), or the weights of
+    ``checkpoint`` (``load_weights``; ``use_teacher`` for the EMA teacher).
+    Default output stream: 'fusion' for cs2dsec, 'image' for cs2dz."""
     cfg = C.PRESETS[config]() if isinstance(config, str) else config
+    cfg = C.apply_overrides(cfg, overrides)
     model = build_model(cfg, device, seed)
-    if torch_checkpoint:
-        from .utils.weights import load_reference_state_dict
-        ckpt = torch.load(torch_checkpoint, map_location=model_device(model),
-                          weights_only=False)
-        if isinstance(ckpt, dict) and "state_dict" in ckpt:
-            ckpt = ckpt["state_dict"]
-        load_reference_state_dict(model, ckpt)
+    if checkpoint:
+        load_weights(model, checkpoint, use_teacher)
     if output is None:
         output = ("fusion" if cfg.model.train_type.startswith("cs2dsec")
                   else "image")
@@ -178,10 +199,14 @@ def image_isr(segmentor: Segmentor, pil_image) -> torch.Tensor:
     return isr[..., None].expand(-1, -1, 3)
 
 
-def inference_segmentor(segmentor: Segmentor, image, second=None):
+def inference_segmentor(segmentor: Segmentor, image, second=None,
+                        out_file: str | None = None,
+                        opacity: float | None = None):
     """Segment one image file (or pre-normalized [H, W, 3] array) -> the
     [H, W] int32 prediction as numpy. Without ``second``, a stream that
-    needs a second modality gets the image's ISR (``image_isr``)."""
+    needs a second modality gets the image's ISR (``image_isr``). With
+    ``out_file`` the image|second|pred panel is written there (the pred
+    blended at ``opacity``)."""
     if isinstance(image, str):
         pil = open_rgb(image)
         arr = normalize_image(pil)
@@ -189,4 +214,10 @@ def inference_segmentor(segmentor: Segmentor, image, second=None):
             second = image_isr(segmentor, pil)
     else:
         arr = np.asarray(image, np.float32)
-    return segmentor.predict(arr, second).cpu().numpy()
+    pred = segmentor.predict(arr, second).cpu().numpy()
+    if out_file:
+        from .utils.visualization import show_result
+        show_result(arr, pred, out_path=out_file, opacity=opacity,
+                    events=(None if second is None
+                            else torch.as_tensor(second).cpu().numpy()))
+    return pred

@@ -187,6 +187,91 @@ def replace(cfg, **kw):
     return dataclasses.replace(cfg, **kw)
 
 
+def _coerce(value, template, annotation: str = ""):
+    """A string override coerced to the type of the field's current value
+    (``template``). ``annotation`` is the field's declared type as a
+    string: a union with ``str`` keeps the raw string when a numeric cast
+    fails, a union with ``None`` takes 'none'; anything else that does not
+    cast raises instead of putting a str into an int field."""
+    if not isinstance(value, str):
+        return value
+    s = value.strip()
+    if s.lower() in ("none", "null") and (template is None
+                                          or "None" in annotation):
+        return None
+    if isinstance(template, bool):
+        return s.lower() in ("1", "true", "yes", "on")
+    if isinstance(template, (int, float)):
+        try:
+            return type(template)(s)
+        except ValueError:
+            if isinstance(template, int):
+                try:            # ints written 1e4 / 4e4
+                    f = float(s)
+                    if f == int(f):
+                        return int(f)
+                except ValueError:
+                    pass
+            if "str" in annotation:
+                return s   # a union field (random_choice_thres 'a-b')
+            raise ValueError(
+                f"cannot coerce {s!r} to {type(template).__name__} "
+                f"(field type {annotation or type(template).__name__})")
+    if isinstance(template, IsrParams):
+        return IsrParams.from_string(s)
+    if isinstance(template, (tuple, list)):
+        elem = template[0] if len(template) else None
+        parts = [p for p in s.replace(",", " ").split() if p]
+        return type(template)(_coerce(p, elem) for p in parts)
+    if isinstance(template, str):
+        return s
+    if s.lower() in ("none", "null"):
+        return None
+    if template is None:
+        # an untyped slot: a scalar, a tuple of them, or the string
+        if "," in s:
+            return tuple(_coerce(p, None) for p in s.split(",") if p.strip())
+        for cast in (int, float):
+            try:
+                return cast(s)
+            except ValueError:
+                pass
+        if s.lower() in ("true", "false"):
+            return s.lower() == "true"
+        return s
+    return s
+
+
+def set_by_path(cfg, path: str, value):
+    """A copy of the frozen config tree with the dotted ``path`` (e.g.
+    ``uda.pseudo_threshold``) set to ``value``, a string coerced against
+    the field's current value. An unknown field raises KeyError."""
+    head, _, rest = path.partition(".")
+    if not hasattr(cfg, head):
+        raise KeyError(f"no config field {head!r} on {type(cfg).__name__} "
+                       f"(path {path!r})")
+    cur = getattr(cfg, head)
+    if rest:
+        new = set_by_path(cur, rest, value)
+    else:
+        ann = ""
+        for f in dataclasses.fields(cfg):
+            if f.name == head:
+                ann = f.type if isinstance(f.type, str) else str(f.type)
+        new = _coerce(value, cur, ann)
+    return dataclasses.replace(cfg, **{head: new})
+
+
+def apply_overrides(cfg, overrides):
+    """``["a.b.c=value", ...]`` (the CLIs' ``--set``) applied in order."""
+    for ov in overrides or ():
+        path, eq, val = ov.partition("=")
+        if not eq:
+            raise ValueError(f"override {ov!r} is not KEY=VALUE")
+        cfg = set_by_path(cfg, path.strip(), val)
+    return cfg
+
+
 def cs2dsec_image_events_b5(**overrides) -> RunConfig:
     """Flagship: Cityscapes(image+IC) -> DSEC-Night image+events fusion UDA."""
     cfg = RunConfig(

@@ -236,3 +236,71 @@ class FusionEncoderDecoder(nn.Module):
         if got is None:  # events-less inference falls back to image stream
             got = out["image_output"]
         return got
+
+
+def multi_scale_flip_inference(apply_fn, img, *, scales=(1.0,),
+                               flip: bool = False):
+    """The reference's aug_test (encoder_decoder.py:986-1003): the softmax
+    of ``apply_fn(x)`` (logits at x's size, NHWC) averaged over ``scales``
+    and, with ``flip``, horizontal flips, each resized back to the input's
+    size [B, H, W, C] first; float32."""
+    h, w = img.shape[1:3]
+    acc, n = None, 0
+    for s in scales:
+        # Python's round (half to even), as the JAX package sizes a scale
+        sh, sw = int(round(h * s)), int(round(w * s))
+        x = resize_bilinear(img, (sh, sw)) if (sh, sw) != (h, w) else img
+        variants = [x] + ([torch.flip(x, dims=(2,))] if flip else [])
+        for vi, v in enumerate(variants):
+            logits = resize_bilinear(apply_fn(v), (h, w))
+            sm = torch.softmax(logits.float(), dim=-1)
+            if vi == 1:
+                sm = torch.flip(sm, dims=(2,))
+            acc = sm if acc is None else acc + sm
+            n += 1
+    return acc / n
+
+
+def slide_grid(size, crop_size, stride):
+    """The (y1, x1) corners of the reference's static crop grid
+    (encoder_decoder.py:175-218), row by row; the last crop of a row or
+    column is clamped to end at the image's edge."""
+    h, w = size
+    h_crop, w_crop = crop_size
+    h_stride, w_stride = stride
+    h_grids = max(h - h_crop + h_stride - 1, 0) // h_stride + 1
+    w_grids = max(w - w_crop + w_stride - 1, 0) // w_stride + 1
+    return [(min(hi * h_stride, h - h_crop), min(wi * w_stride, w - w_crop))
+            for hi in range(h_grids) for wi in range(w_grids)]
+
+
+def _chunk_spans(total: int, chunk: int):
+    """(start, length) spans covering ``total`` in steps of ``chunk``."""
+    return [(s, min(chunk, total - s)) for s in range(0, total, chunk)]
+
+
+def slide_inference(apply_fn, img, *, crop_size, stride, num_classes: int,
+                    crop_chunk: int | None = None):
+    """Sliding-window logits [B, H, W, num_classes] (float32) of NHWC
+    ``img``: the G crops of ``slide_grid`` are folded into the batch and
+    run through ``apply_fn`` (logits at crop size) in one forward of G*B
+    crops, or in forwards of at most ``crop_chunk`` crops; each crop's
+    logits are added where it came from, in grid order, and the sum is
+    divided by the number of crops over each pixel."""
+    b, h, w, _ = img.shape
+    h_crop, w_crop = crop_size
+    offsets = slide_grid((h, w), crop_size, stride)
+    g_total = len(offsets)
+    flat = torch.cat([img[:, y1:y1 + h_crop, x1:x1 + w_crop]
+                      for y1, x1 in offsets])      # [G*B, hc, wc, C_in]
+    chunk = g_total if not crop_chunk else min(crop_chunk, g_total)
+    logits = torch.cat([apply_fn(flat[s * b:(s + g) * b])
+                        for s, g in _chunk_spans(g_total, chunk)])
+    preds = torch.zeros((b, h, w, num_classes), dtype=torch.float32,
+                        device=img.device)
+    count = torch.zeros((b, h, w, 1), dtype=torch.float32, device=img.device)
+    for g, (y1, x1) in enumerate(offsets):
+        preds[:, y1:y1 + h_crop, x1:x1 + w_crop] += logits[
+            g * b:(g + 1) * b].float()
+        count[:, y1:y1 + h_crop, x1:x1 + w_crop] += 1.0
+    return preds / count

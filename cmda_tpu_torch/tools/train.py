@@ -7,7 +7,7 @@ device (mirrors tools/train.py of the JAX package).
         --work-dir work_dirs/b5 --pretrained-backbone mit_b5.pth \\
         --cyclegan cityscapes_ICD_to_dsec_EN.pth
     python -m cmda_tpu_torch.tools.train --config cs2dz --synthetic \\
-        --work-dir work_dirs/dz [--teacher-bf16]
+        --work-dir work_dirs/dz [--teacher-bf16] [--set uda.alpha=0.99]
 
 Prints ``{"done": true, "step": N, "work_dir": ...}`` at the end;
 ``main(argv)`` returns the ``TrainLoop`` (its final state in ``.state``).
@@ -27,8 +27,8 @@ from ..utils.weights import (load_pretrained_backbone, load_torch_file,
                              strip_prefix)
 
 # the JAX CLI's flags that lead to code the port does not have, by ROADMAP
-# queue A item: 2 training options, 3 config overrides and the ablation
-# surface, 4 the real corpora, 5 other UDA variants, 7 parallelism
+# queue A item: 3 the ablation surface, 4 the real corpora, 5 other UDA
+# variants, 7 parallelism
 _UNPORTED = {
     **dict.fromkeys(("--source-root", "--target-root", "--target-txt",
                      "--val-txt", "--rcs-json-dir"), 4),
@@ -36,7 +36,7 @@ _UNPORTED = {
                      "--shard-opt-state", "--tensor-parallel"), 7),
     "--imnet": 5,
     **dict.fromkeys((
-        "--set", "--fused-resize", "--pallas-ce", "--no-pallas-ce",
+        "--fused-resize", "--pallas-ce", "--no-pallas-ce",
         "--backbone", "--fusion", "--fusion_isr", "--train_size",
         "--day_events_generate", "--events_clip_range",
         "--events_bins_5_avg_1", "--image_change_range", "--feature_dist",
@@ -82,6 +82,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--teacher-bf16", action="store_true",
                    help="the teacher reads a bfloat16 cast of the EMA "
                         "weights (uda.teacher_bf16); the EMA stays float32")
+    p.add_argument("--set", dest="overrides", action="append", default=[],
+                   metavar="KEY=VAL",
+                   help="dotted config override, e.g. uda.pseudo_threshold"
+                        "=0.9 (repeatable); an option the port lacks raises "
+                        "when the trainer is built")
     p.add_argument("--device", default="cuda")
     args, extra = p.parse_known_args(argv)
     for token in extra:
@@ -104,14 +109,15 @@ def build_config(args) -> C.RunConfig:
         cfg = C.replace(cfg, seed=args.seed)
     if args.dtype:
         cfg = C.replace(cfg, dtype=args.dtype)
-    if args.teacher_bf16:
-        cfg = C.replace(cfg, uda=C.replace(cfg.uda, teacher_bf16=True))
     if args.batch_size:
         cfg = C.replace(cfg, data=C.replace(cfg.data,
                                             batch_size=args.batch_size))
     if args.max_iters:
         cfg = C.replace(cfg, optim=C.replace(cfg.optim,
                                              max_iters=args.max_iters))
+    cfg = C.apply_overrides(cfg, args.overrides)
+    if args.teacher_bf16:   # after --set, as the JAX CLI appends it
+        cfg = C.replace(cfg, uda=C.replace(cfg.uda, teacher_bf16=True))
     return cfg
 
 

@@ -3,11 +3,12 @@
 ``DACSTrainer.train_step`` (mirrors cmda_tpu.train.loop on one device;
 reference mmseg/apis/train.py:39-131 and its hooks).
 
-* ``evaluate_fusion``: whole-image inference over a test dataset -> mIoU,
-  with optional prediction panels in ``show_dir``.
+* ``evaluate_fusion``: whole-image, sliding-window or multi-scale+flip
+  inference of the student or the EMA teacher over a test dataset ->
+  mIoU, with optional prediction panels in ``show_dir``.
 * ``save_checkpoint`` / ``load_checkpoint``: one ``iter_<n>.pth`` holding
   the student in reference mmseg keys (``state_dict``, what
-  ``apis.init_segmentor(torch_checkpoint=...)`` reads), the teacher
+  ``apis.init_segmentor(checkpoint=...)`` reads), the teacher
   (``ema_state_dict``), AdamW (``optimizer``), ``step`` and ``meta``;
   written to a temporary name and renamed, so a cut run never leaves a
   partial checkpoint.
@@ -23,6 +24,7 @@ JAX loop logs it, sleeps and retries up to three times).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -40,7 +42,9 @@ from ..config import RunConfig
 from ..data.loader import (PrefetchLoader, collate, device_prefetch,
                            host_tensor)
 from ..data.wire import encode_wire
+from ..models.segmentor import multi_scale_flip_inference, slide_inference
 from ..ops.metrics import eval_metrics, intersect_and_union, summarize_miou
+from ..ops.resize import resize_bilinear
 from ..uda.dacs import DACSTrainer, DACSTrainState
 from ..utils.visualization import (CITYSCAPES_PALETTE, colorize_label,
                                    denorm_to_uint8, grid_panel,
@@ -54,33 +58,96 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
+# the reference's aug_test scales (tools/test.py:118-123), each also flipped
+TTA_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)
+
+
+def teacher_model(state: DACSTrainState):
+    """The EMA teacher as evaluation runs it: the EMA parameters with the
+    student's BatchNorm statistics, as the JAX package evaluates
+    ``{"params": ema_params, "batch_stats": batch_stats}``. (The port's
+    teacher module keeps BN buffers of its own, which never move: the EMA
+    update touches parameters only.) A module that shares the tensors of
+    both and copies none."""
+    memo = {id(p): p for p in state.ema_model.parameters()}
+    student = dict(state.model.named_buffers())
+    for name, buf in state.ema_model.named_buffers():
+        memo[id(buf)] = student[name]
+    return copy.deepcopy(state.ema_model, memo)
+
+
 @torch.no_grad()
 def evaluate_fusion(model, dataset, *, output: str = "fusion",
-                    num_classes: int = 19, max_samples: int | None = None,
-                    batch_size: int = 1, show_dir: str | None = None) -> dict:
-    """Whole-image inference over a test dataset -> mIoU summary.
+                    use_teacher: bool = False, num_classes: int = 19,
+                    max_samples: int | None = None, batch_size: int = 1,
+                    show_dir: str | None = None, inference: str = "whole",
+                    slide_crop: tuple[int, int] = (512, 512),
+                    slide_stride: tuple[int, int] = (341, 341),
+                    slide_crop_chunk: int | None = None,
+                    aug_test: bool = False,
+                    opacity: float | None = None) -> dict:
+    """Inference over a test dataset -> mIoU summary.
 
-    ``model`` is the port's FusionEncoderDecoder or a Segmentor. Each
-    batch's prediction is the argmax of the selected stream's logits
-    upsampled to the input size, through the fused upsample+argmax kernel
-    (``apis.predict_labels``); 19-class histograms, and the 18-class
-    summary with the x19/18 rule. With ``show_dir`` each sample's
-    image|second|pred|GT panel is written there as ``{index:06d}.png``.
+    ``model`` is the port's FusionEncoderDecoder, a Segmentor, or a
+    DACSTrainState (the student, or with ``use_teacher`` the EMA teacher on
+    the student's BN statistics, ``teacher_model``). Each prediction is the
+    argmax of the ``output`` stream's logits at the input size
+    (``select_logits``; a dataset without a second modality gives the image
+    stream):
+    * ``inference='whole'``: through the fused upsample+argmax kernel
+      (``apis.predict_labels``);
+    * ``'slide'``: the reference's overlapping crops over both modalities
+      (``slide_inference``, ``slide_crop`` / ``slide_stride`` /
+      ``slide_crop_chunk``), whole mode for an image-only dataset;
+    * ``aug_test``: the softmax averaged over TTA_SCALES and their flips
+      (``multi_scale_flip_inference``), in whole mode only.
+    19-class histograms, and the 18-class summary with the x19/18 rule.
+    With ``show_dir`` each sample's image|second|pred|GT panel (the pred
+    blended at ``opacity``) is written there as ``{index:06d}.png``.
     Nothing of the model changes (eval-mode BN, no draws)."""
+    if aug_test and inference == "slide":
+        raise ValueError("aug_test applies to whole-image inference only")
+    if inference not in ("whole", "slide"):
+        raise ValueError(f"unknown inference mode {inference!r}")
+    if isinstance(model, DACSTrainState):
+        model = teacher_model(model) if use_teacher else model.model
+    elif use_teacher:
+        raise ValueError("use_teacher needs the DACSTrainState that holds "
+                         "the EMA teacher")
     if isinstance(model, Segmentor):
         model = model.model
     dev = model_device(model)
+
+    def full_logits(x):
+        """The stream's logits at x's size; x is the RGB image with the
+        second modality (if any) after it on the channel axis."""
+        second = x[..., 3:] if x.shape[-1] > 3 else None
+        return resize_bilinear(select_logits(model, x[..., :3], second,
+                                             output), x.shape[1:3])
+
     totals = [np.zeros(num_classes, np.float64) for _ in range(4)]
     n = len(dataset) if max_samples is None else min(len(dataset), max_samples)
     for start in range(0, n, batch_size):
         samples = [dataset[i] for i in range(start, min(start + batch_size, n))]
         batch = collate(samples)
-        image = host_tensor(batch["image"]).to(dev)
+        image = host_tensor(batch["image"]).to(dev, torch.float32)
         second = batch.get("events", batch.get("isr"))
         if second is not None:
-            second = host_tensor(second).to(dev)
-        logits = select_logits(model, image, second, output)
-        pred = predict_labels(logits, image.shape[1:3]).cpu().numpy()
+            second = host_tensor(second).to(dev, torch.float32)
+        both = image if second is None else torch.cat([image, second], -1)
+        if inference == "slide" and second is not None:
+            pred = slide_inference(
+                full_logits, both, crop_size=tuple(slide_crop),
+                stride=tuple(slide_stride), num_classes=num_classes,
+                crop_chunk=slide_crop_chunk).argmax(dim=-1)
+        elif aug_test:
+            pred = multi_scale_flip_inference(
+                full_logits, both, scales=TTA_SCALES,
+                flip=True).argmax(dim=-1)
+        else:
+            pred = predict_labels(select_logits(model, image, second, output),
+                                  image.shape[1:3])
+        pred = pred.cpu().numpy()
         for j, s in enumerate(samples):
             res = intersect_and_union(pred[j], s["label"], num_classes)
             for k in range(4):
@@ -89,7 +156,8 @@ def evaluate_fusion(model, dataset, *, output: str = "fusion",
                 show_result(s["image"], pred[j], gt=s.get("label"),
                             events=s.get("events", s.get("isr")),
                             out_path=os.path.join(show_dir,
-                                                  f"{start + j:06d}.png"))
+                                                  f"{start + j:06d}.png"),
+                            opacity=opacity)
     ret = eval_metrics(*totals)
     summary = summarize_miou(ret, valid_classes=18)
     summary["per_class_iou"] = {

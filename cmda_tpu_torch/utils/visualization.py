@@ -57,14 +57,24 @@ def grid_panel(rows: list[list[np.ndarray]]) -> np.ndarray:
     return np.concatenate([hstack_panel(r) for r in rows], axis=0)
 
 
-def show_result(image, pred, gt=None, events=None, out_path=None):
+def show_result(image, pred, gt=None, events=None, out_path=None,
+                opacity: float | None = None):
     """The image|second|pred|GT panel (uint8 [H, W', 3]), written to
-    ``out_path`` when given."""
+    ``out_path`` when given. With ``opacity`` the pred cell is the
+    reference's overlay ``img * (1 - opacity) + colors * opacity``
+    (base.py:241-248) instead of the bare colour map."""
     cells = [denorm_to_uint8(image)]
     if events is not None:
         cells.append(signed_to_uint8(events[..., 0] if events.ndim == 3
                                      else events))
-    cells.append(colorize_label(pred))
+    if opacity is not None:
+        if not 0 < opacity <= 1.0:
+            raise ValueError(f"opacity must be in (0, 1], got {opacity}")
+        blend = (cells[0].astype(np.float32) * (1 - opacity)
+                 + colorize_label(pred).astype(np.float32) * opacity)
+        cells.append(blend.astype(np.uint8))
+    else:
+        cells.append(colorize_label(pred))
     if gt is not None:
         cells.append(colorize_label(gt))
     panel = hstack_panel(cells)

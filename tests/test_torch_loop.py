@@ -447,7 +447,7 @@ def test_cli_runs_resumes_and_refuses_unported_flags(tmp_path, capsys):
     assert loop.state.step == 3
     assert os.path.exists(tmp_path / "b" / "iter_3.pth")
 
-    for flag, item in (("--fused-resize", 3), ("--set", 3),
+    for flag, item in (("--fused-resize", 3), ("--backbone", 3),
                        ("--isr_edge", 3), ("--target-txt", 4),
                        ("--multi-host", 7)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -88,7 +88,21 @@ Phases, any failure exits non-zero:
      submission PNGs against the whole-mode prediction; the path's times
      and peak memory; the argmax and ISR kernels at its points are held
      and timed in 3;
- 10. one JSON line of per-kernel results, the nvidia-smi line, and last
+ 10. the cs2dz recipe on corpus files (``phase_real_corpus``): Cityscapes
+     (8 frames at 2048x1024 with IC1 PNGs, labels and the Rare Class
+     Sampling JSONs) and DarkZurich (4 train + 4 val frames at 1920x1080)
+     written by ``cmda_tpu_torch.tools.make_fake_corpus``, then
+     ``tools.train.main --config cs2dz --source-root --target-root
+     --rcs-json-dir`` for 4 iterations with a checkpoint and an evaluation
+     of the val frames: launches per step (CE 6 / dx 6 / argmax 3 / ISR 1)
+     and per evaluation (argmax 1 a frame), finite losses, every RCS source
+     load from a file listed for the class drawn; the iteration time beside
+     the bare cs2dz step and its synthetic run, data_time and its host
+     parts, evaluation seconds a frame, the busy share of 3 profiled
+     iterations. The DSEC-Night corpus (``events.h5``) needs h5py, which
+     the card's machine lacks, so its run is held on the CPU only
+     (``tests/test_torch_data.py``);
+ 11. one JSON line of per-kernel results, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -1095,6 +1109,12 @@ TRAIN_MOMENT_RTOL = 5e-4
 TRAIN_BF16_KERNEL_MOMENT_RTOL = 2.0 ** -6
 
 
+# the bare step's median by phase tag ("train_cs2dz", ...) and the
+# synthetic run's steady iteration ("loop_cs2dz", ...), for the real runs
+STEP_MS_MEDIAN = {}
+LOOP_MS_STEADY = {}
+
+
 def _kernel_counters():
     from cmda_tpu_torch.ops import fused_ce, fused_resize, isr_kernel
     fns = {"fused_resize_ce": fused_ce.fused_resize_ce,
@@ -1518,6 +1538,7 @@ def phase_train(dtype="float32", batch=None, preset="cs2dsec", options=False):
               f"{k} {p:.2f} / {lv:.2f}" for k, (p, lv) in memory.items()),
           flush=True)
     print(f"{tag} timings " + json.dumps(timings), flush=True)
+    STEP_MS_MEDIAN[tag] = statistics.median(step_ms)
     return totals
 
 
@@ -1946,6 +1967,7 @@ def phase_loop(preset="cs2dsec"):
         f"{prof['host_ms']:.2f} ms host, device busy not measured (the trace "
         "holds no device event)"), flush=True)
     print(f"{tag} timings " + json.dumps(timings), flush=True)
+    LOOP_MS_STEADY[tag] = timings["loop_iter_ms_median_steady"]
     return totals
 
 
@@ -2308,6 +2330,330 @@ def phase_test():
     return totals
 
 
+# the cs2dz recipe on corpus files written here at the real frame sizes:
+# Cityscapes' 2048x1024 frames (with IC1 PNGs, labels and the Rare Class
+# Sampling JSONs) and DarkZurich's 1920x1080 train and val frames, cut to 8
+# and 4 + 4 frames. The DSEC-Night part (events.h5) needs h5py, which the
+# card's machine lacks; it is held on the CPU (tests/test_torch_data.py).
+REAL_CS_FRAMES = 8
+REAL_CS_SIZE = (2048, 1024)
+REAL_DZ_FRAMES = 4
+REAL_DZ_SIZE = (1920, 1080)
+REAL_ITERS = 4
+REAL_PROFILED = (2, 3, 4)
+REAL_EVAL_LAUNCHES = {"fused_resize_ce": 0, "fused_resize_ce_dx": 0,
+                      "fused_resize_ce_dweight": 0,
+                      "fused_resize_argmax": REAL_DZ_FRAMES, "batched_isr": 0}
+
+
+def _tree_bytes(root):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def _real_host_ms(args, cfg):
+    """The host parts of a real cs2dz iteration's loader work on one
+    thread, on the corpus of ``args`` (medians of 5, ms): a Cityscapes
+    frame's PNG decode and resize to 1024x512 (image, IC1, label), the host
+    ISR of a 512x512 crop, a DarkZurich frame's decode and resize to
+    960x540 and its ISR, one source and one target sample, one RCS pair,
+    collate of a batch and ``encode_wire`` of it."""
+    import random
+    from PIL import Image
+    from cmda_tpu_torch.data.host_isr import host_image_change, open_rgb
+    from cmda_tpu_torch.data.loader import collate
+    from cmda_tpu_torch.data.wire import encode_wire
+    from cmda_tpu_torch.tools import train as cli
+
+    def ms(fn):
+        out = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    pairs, _ = cli.build_datasets(cfg, args)
+    src, tgt = pairs.source, pairs.target
+    path, dz_path = src.files[0], tgt.files[0]
+    isr_kw = src.isr_kw
+    crop = open_rgb(path).resize(src.resize, Image.BILINEAR).crop(
+        (0, 0) + src.crop)
+    dz = open_rgb(dz_path).resize(tgt.resize, Image.BILINEAR)
+    rng = random.Random(0)
+    samples = [pairs.load(i, rng=rng) for i in range(cfg.data.batch_size)]
+    batch = collate(samples)
+    return {
+        "cityscapes_png_decode_resize_ms": ms(lambda: open_rgb(path).resize(
+            src.resize, Image.BILINEAR)),
+        "cityscapes_ic1_decode_resize_ms": ms(lambda: src._load_ic(path)),
+        "cityscapes_label_decode_resize_ms": ms(lambda: Image.open(
+            src._label_path(path)).resize(src.resize, Image.NEAREST)),
+        "cityscapes_isr_512_ms": ms(lambda: host_image_change(
+            crop, shift_direction="rightdown", **isr_kw)),
+        "dark_zurich_png_decode_resize_ms": ms(lambda: open_rgb(
+            dz_path).resize(tgt.resize, Image.BILINEAR)),
+        "dark_zurich_isr_960x540_ms": ms(lambda: host_image_change(
+            dz, shift_direction="rightdown", **tgt.isr_kw)),
+        "source_sample_ms": ms(lambda: src.load(0, rng=rng)),
+        "target_sample_ms": ms(lambda: tgt.load(0, rng=rng)),
+        "rcs_pair_ms": ms(lambda: pairs.load(0, rng=rng)),
+        "collate_ms": ms(lambda: collate(samples)),
+        "encode_wire_ms": ms(lambda: encode_wire(batch)),
+    }
+
+
+def phase_real_corpus():
+    """The cs2dz recipe on corpus files at the real frame sizes, written
+    here by ``cmda_tpu_torch.tools.make_fake_corpus``, through
+    ``cmda_tpu_torch.tools.train.main --config cs2dz --source-root
+    --target-root --rcs-json-dir`` on cuda (MiT-b5, 512x512, batch 2,
+    float32, 4 loader threads): 4 iterations, a checkpoint and an
+    evaluation of the 4 val frames at iteration 4, the launch counters set
+    to 0 just before the run; every source sample of Rare Class Sampling
+    drawn from a file that samples_with_class.json lists for the class
+    drawn. Then the iteration time beside the bare step and the synthetic
+    run of the same preset, data_time and its host parts, evaluation
+    seconds a frame and the busy share of 3 profiled iterations. Returns
+    the run's launches."""
+    import collections
+    import threading
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cmda_tpu_torch.data.cityscapes_ic import CityscapesICDataset
+    from cmda_tpu_torch.data.uda import UDAPairDataset
+    from cmda_tpu_torch.tools import make_fake_corpus as corpus
+    from cmda_tpu_torch.tools import train as cli
+    from cmda_tpu_torch.train import loop as loop_mod
+    from cmda_tpu_torch.uda.dacs import DACSTrainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    counters = _kernel_counters()
+    tag = "real_cs2dz"
+    timings = {}
+    launches = {"step": [], "eval": []}
+    prof = {}
+    split = {"queue": [], "encode": []}
+    local = threading.local()
+    picks = []     # (class drawn, file loaded), from the loader's threads
+
+    class RecordingDict(dict):
+        """samples_with_class: records the class of each RCS draw."""
+
+        def get(self, c, default=None):
+            local.c = c
+            return super().get(c, default)
+
+    real_init = UDAPairDataset.__init__
+
+    def pair_init(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        if self.rcs:
+            self.samples_with_class = RecordingDict(self.samples_with_class)
+            prof["pairs"] = self
+
+    real_load = CityscapesICDataset.load
+
+    def source_load(self, idx, crop_xy=None, flip=None, rng=None):
+        picks.append((getattr(local, "c", None),
+                      os.path.basename(self.files[idx])))
+        return real_load(self, idx, crop_xy, flip, rng)
+
+    def counted(kind, fn):
+        def wrapper(*args, **kwargs):
+            before = {k: f.launches for k, f in counters.items()}
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            launches[kind].append({k: f.launches - before[k]
+                                   for k, f in counters.items()})
+            return out
+        return wrapper
+
+    step_fn = counted("step", DACSTrainer.train_step)
+
+    def train_step(trainer, state, batch, draws=None):
+        if state.step == REAL_PROFILED[0] - 1:
+            torch.cuda.synchronize()
+            prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+            prof["p"].start()
+            prof["t0"] = time.perf_counter()
+        return step_fn(trainer, state, batch, draws)
+
+    real_log = loop_mod.TrainLoop.log
+
+    def log(loop, record):
+        real_log(loop, record)
+        if record.get("iter") == REAL_PROFILED[-1] and "loss" in record:
+            torch.cuda.synchronize()
+            prof["host_ms"] = (time.perf_counter() - prof["t0"]) * 1e3
+            prof["p"].stop()
+
+    eval_fn = counted("eval", loop_mod.evaluate_fusion)
+
+    def evaluate_fusion(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = eval_fn(*args, **kwargs)
+        timings["eval_s"] = time.perf_counter() - t0
+        return out
+
+    def timed(kind, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            split[kind].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cs = corpus.fabricate_cityscapes(os.path.join(tmp, "cityscapes"),
+                                         REAL_CS_FRAMES, REAL_CS_SIZE)
+        timings["write_cityscapes_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dz = corpus.fabricate_dark_zurich(os.path.join(tmp, "dark_zurich"),
+                                          REAL_DZ_FRAMES, REAL_DZ_SIZE,
+                                          splits=("train", "val"))
+        timings["write_dark_zurich_s"] = time.perf_counter() - t0
+        timings["cityscapes_bytes"] = _tree_bytes(cs)
+        timings["dark_zurich_bytes"] = _tree_bytes(dz)
+        print(f"{tag}: wrote Cityscapes ({REAL_CS_FRAMES} frames at "
+              f"{REAL_CS_SIZE[0]}x{REAL_CS_SIZE[1]} with IC1, labels and the "
+              f"RCS JSONs) {timings['cityscapes_bytes']} bytes in "
+              f"{timings['write_cityscapes_s']:.2f} s, DarkZurich "
+              f"({REAL_DZ_FRAMES} train + {REAL_DZ_FRAMES} val frames at "
+              f"{REAL_DZ_SIZE[0]}x{REAL_DZ_SIZE[1]}) "
+              f"{timings['dark_zurich_bytes']} bytes in "
+              f"{timings['write_dark_zurich_s']:.2f} s", flush=True)
+        work = os.path.join(tmp, "work")
+        argv = ["--config", "cs2dz", "--source-root", cs, "--target-root",
+                dz, "--rcs-json-dir", cs, "--max-iters", str(REAL_ITERS),
+                "--num-workers", "4", "--seed", "0", "--work-dir", work,
+                "--set", "log_interval=1",
+                "--set", f"checkpoint_interval={REAL_ITERS}",
+                "--set", f"eval_interval={REAL_ITERS}",
+                "--set", "debug_img_interval=0", "--device", "cuda"]
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(UDAPairDataset, "__init__", pair_init), \
+                mock.patch.object(CityscapesICDataset, "load", source_load), \
+                mock.patch.object(DACSTrainer, "train_step", train_step), \
+                mock.patch.object(loop_mod.TrainLoop, "log", log), \
+                mock.patch.object(loop_mod, "evaluate_fusion",
+                                  evaluate_fusion), \
+                mock.patch.object(loop_mod.PrefetchLoader, "__next__", timed(
+                    "queue", loop_mod.PrefetchLoader.__next__)), \
+                mock.patch.object(loop_mod, "encode_wire", timed(
+                    "encode", loop_mod.encode_wire)):
+            loop = cli.main(argv)
+        torch.cuda.synchronize()
+        timings["run_s"] = time.perf_counter() - t0
+        totals = {k: f.launches for k, f in counters.items()}
+        n_picks = len(picks)
+
+        # --- what the run wrote -----------------------------------------
+        with open(loop.log_path) as f:
+            records = [json.loads(line) for line in f]
+        steps = [r for r in records if "loss" in r]
+        if [r["iter"] for r in steps] != list(range(1, REAL_ITERS + 1)):
+            fail(f"{tag}: step records {[r['iter'] for r in steps]}")
+        bad = [(r["iter"], k) for r in steps for k, v in r.items()
+               if not math.isfinite(v)]
+        if bad:
+            fail(f"{tag}: log values not finite: {bad}")
+        files = sorted(os.listdir(work))
+        evals = [r["eval"] for r in records if "eval" in r]
+        if (f"iter_{REAL_ITERS}.pth" not in files or len(evals) != 1
+                or not math.isfinite(evals[0]["mIoU"])):
+            fail(f"{tag}: the run wrote {files}, evaluations {evals}")
+        panels = [f for f in files if f.startswith("test_results_")]
+        if len(panels) != 1 or len(os.listdir(os.path.join(
+                work, panels[0]))) != REAL_DZ_FRAMES:
+            fail(f"{tag}: evaluation panels {panels}")
+
+        # --- launches ---------------------------------------------------
+        per_step = step_launches(loop.trainer)
+        expect = {k: REAL_ITERS * per_step[k] + REAL_EVAL_LAUNCHES[k]
+                  for k in totals}
+        if (launches["step"] != [per_step] * REAL_ITERS
+                or launches["eval"] != [REAL_EVAL_LAUNCHES]
+                or totals != expect):
+            fail(f"{tag}: launches {totals} (per step {launches['step']}, "
+                 f"evaluation {launches['eval']}), expected {expect}")
+
+        # --- Rare Class Sampling ------------------------------------------
+        pairs = prof["pairs"]
+        wrong = [(c, f) for c, f in picks[:n_picks]
+                 if c is None or f not in {
+                     os.path.basename(n) for n, _ in
+                     dict.get(pairs.samples_with_class, c, [])}]
+        if not picks or wrong:
+            fail(f"{tag}: {len(wrong)} of {len(picks)} source loads outside "
+                 f"samples_with_class.json: {wrong[:5]}")
+        drawn = collections.Counter(c for c, _ in picks[:n_picks])
+        print(f"{tag}: {REAL_ITERS} iterations through tools.train.main on "
+              f"the corpus files in {timings['run_s']:.1f} s; launches "
+              f"{totals} (per step {per_step}, evaluation of "
+              f"{REAL_DZ_FRAMES} val frames argmax {REAL_DZ_FRAMES}); final "
+              f"loss {steps[-1]['loss']:.5f}; mIoU {evals[0]['mIoU']:.5f}; "
+              f"RCS: {n_picks} source loads by the loader's threads (the "
+              f"queues run ahead of the steps; a draw reloads its file up to "
+              f"10 times for a crop that keeps the class), each from a file "
+              f"samples_with_class.json lists for the class drawn; loads by "
+              f"class drawn {dict(sorted(drawn.items()))}", flush=True)
+        host = _real_host_ms(cli.parse_args(argv), loop.cfg)
+        del loop
+
+    iter_ms = {r["iter"]: r["time"] * 1e3 for r in steps}
+    data_ms = {r["iter"]: r["data_time"] * 1e3 for r in steps}
+    busy_ms, n_events = _busy_ms(prof["p"])
+    steady = statistics.median(iter_ms[i] for i in REAL_PROFILED)
+    bare = STEP_MS_MEDIAN.get("train_cs2dz")
+    synthetic = LOOP_MS_STEADY.get("loop_cs2dz")
+    timings.update({
+        "iter_ms": iter_ms, "iter_ms_median_steady": steady,
+        "bare_step_ms_median": bare, "synthetic_loop_ms_steady": synthetic,
+        "data_ms": data_ms,
+        "data_ms_median_after_first": statistics.median(
+            data_ms[i] for i in range(2, REAL_ITERS + 1)),
+        "queue_ms": split["queue"][:REAL_ITERS + 1],
+        "encode_ms": split["encode"][:REAL_ITERS + 1],
+        "eval_s_per_frame": timings["eval_s"] / REAL_DZ_FRAMES,
+        "profiled_ms": prof["host_ms"], "profiled_busy_ms": busy_ms,
+        "profiled_events": n_events, "rcs_loads_by_class": dict(drawn),
+        "host_ms": host, "phase_s": time.perf_counter() - t_phase})
+    smi = smi_line()
+    print(f"{tag}: iteration ms " + ", ".join(
+        f"{i} {t:.2f}" for i, t in iter_ms.items())
+        + f"; steady median (iterations {REAL_PROFILED}, profiled) "
+        f"{steady:.2f} ms, the bare cs2dz step {bare:.2f} ms "
+        f"({100 * (steady / bare - 1):+.1f}%), the synthetic cs2dz run's "
+        f"steady iteration {synthetic:.2f} ms ({smi})", flush=True)
+    print(f"{tag}: data_time ms " + ", ".join(
+        f"{i} {t:.3f}" for i, t in data_ms.items())
+        + f"; median after the first "
+        f"{timings['data_ms_median_after_first']:.3f}; in the loop: the "
+        "loader queue " + ", ".join(f"{t:.2f}" for t in timings["queue_ms"])
+        + " ms, encode_wire " + ", ".join(
+            f"{t:.2f}" for t in timings["encode_ms"]) + " ms; host parts on "
+        "one thread outside the loop: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in host.items()) + f" ({smi})",
+        flush=True)
+    print(f"{tag}: evaluation of {REAL_DZ_FRAMES} DarkZurich val frames "
+          f"(1920x1080 decoded, 540x960 scored) {timings['eval_s']:.2f} s, "
+          f"{timings['eval_s_per_frame']:.3f} s a frame ({smi})", flush=True)
+    print(f"{tag}: profiled iterations {REAL_PROFILED}: " + (
+        f"{prof['host_ms']:.2f} ms host, device busy {busy_ms:.2f} ms "
+        f"({100 * busy_ms / prof['host_ms']:.1f}%) over {n_events} device "
+        "events" if busy_ms is not None else
+        f"{prof['host_ms']:.2f} ms host, device busy not measured (the trace "
+        "holds no device event)") + f"; phase {timings['phase_s']:.1f} s "
+        f"({smi})", flush=True)
+    print(f"{tag} timings " + json.dumps(timings), flush=True)
+    return totals
+
+
 def device_time_only(root):
     """``--device-time ROOT``: build the kernels of the checkout at ROOT
     (another commit unpacked beside this one, say) and print one JSON line
@@ -2393,6 +2739,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     test_launches = phase_test()
+    gc.collect()
+    torch.cuda.empty_cache()
+    real_launches = phase_real_corpus()
     for r in results:
         # the serving kernels keep their serving-path count under
         # "launches"; the training path's count goes beside it, and the
@@ -2408,6 +2757,7 @@ def main():
         r["launches_train_cs2dz"] = dz_launches[r["name"]]
         r["launches_loop_cs2dz"] = dz_loop_launches[r["name"]]
         r["launches_test"] = test_launches[r["name"]]
+        r["launches_real_cs2dz"] = real_launches[r["name"]]
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi, flush=True)

@@ -3,6 +3,9 @@
 evaluation-server submission (mirrors tools/test.py of the JAX package;
 reference tools/test.py).
 
+    python -m cmda_tpu_torch.tools.test --config cs2dsec \\
+        --checkpoint work_dirs/b5/iter_40000.pth \\
+        --target-txt data/dsec/night_test_dataset_warp.txt
     python -m cmda_tpu_torch.tools.test --config tiny --synthetic \\
         --device cpu --max-samples 2
     python -m cmda_tpu_torch.tools.test --config cs2dz \\
@@ -16,8 +19,10 @@ reference tools/test.py).
 ``--checkpoint`` takes the port's ``iter_<n>.pth``, ``--torch-checkpoint``
 a reference ``iter_40000.pth``. Evaluation prints the summary as JSON and
 renames ``--show-dir`` with the score; ``main(argv)`` returns the summary
-(or the submission's record). The DSEC test set (``--target-txt``) needs
-the DSEC loader, which is not ported (ROADMAP queue A item 4).
+(or the submission's record). The test set follows the config's target:
+DSEC-Night's (``--target-txt``, which only a DSEC target takes) is scored
+at 440x640 with the train target's events bins, window and clip;
+DarkZurich's val split (``--target-root``) at 540x960.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import torch
 from .. import config as C
 from ..apis import init_segmentor, predict_labels, select_logits
 from ..data.dark_zurich import DarkZurichDataset
+from ..data.dsec import DSECDataset
 from ..data.loader import host_tensor
 from ..data.synthetic import SyntheticTarget
 from ..train.loop import evaluate_fusion
@@ -48,7 +54,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="reference iter_40000.pth (prefixes stripped as in "
                         "reference tools/test.py:165-169)")
     p.add_argument("--target-txt", default=None,
-                   help="DSEC test list (not ported: ROADMAP queue A item 4)")
+                   help="DSEC-Night test list "
+                        "(night_test_dataset_warp.txt)")
     p.add_argument("--target-root", default=None,
                    help="DarkZurich root (default: the config's)")
     p.add_argument("--synthetic", action="store_true")
@@ -98,18 +105,27 @@ def build_config(args) -> C.RunConfig:
 
 
 def build_dataset(cfg: C.RunConfig, args):
-    """8 synthetic test samples, or DarkZurich's val split (test split for
-    the submission) at 960x540."""
+    """8 synthetic test samples, DSEC-Night's test list, or DarkZurich's
+    val split (test split for the submission) at 960x540."""
     if args.synthetic:
         return SyntheticTarget(
             crop_size=cfg.data.crop_size, length=8, test_mode=True,
             with_events=cfg.model.train_type.startswith("cs2dsec"))
-    if args.target_txt or cfg.data.target == "dsec":
-        raise NotImplementedError("the DSEC test set (--target-txt) needs "
-                                  "the DSEC loader, which is not ported "
-                                  "(ROADMAP queue A item 4); pass "
-                                  "--synthetic")
     d = cfg.data
+    if args.target_txt and d.target != "dsec":
+        raise ValueError(f"--target-txt is the DSEC test list, and the "
+                         f"{cfg.name} config's target is {d.target}")
+    if d.target == "dsec":
+        if not args.target_txt or args.submit_to_website:
+            raise ValueError("the DSEC test set takes --target-txt, and "
+                             "has no submission")
+        # the train target's window, bins and clip (reference
+        # my_run_experiments.py:232-238, 248-255, 352-360)
+        return DSECDataset(args.target_txt, events_bins=d.events_bins,
+                           isr_params=d.target_isr, test_mode=True,
+                           image_change_range=d.image_change_range,
+                           events_clip_range=d.events_clip_range,
+                           outputs=("image", "events", "label"))
     return DarkZurichDataset(
         args.target_root or d.target_root,
         split="test" if args.submit_to_website else "val",

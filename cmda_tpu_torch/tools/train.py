@@ -1,6 +1,14 @@
-"""Train CLI of the port: the DACS run of a preset on synthetic data, on one
-device (mirrors tools/train.py of the JAX package).
+"""Train CLI of the port: the DACS run of a preset on one device, on the
+real corpora's files or on synthetic data (mirrors tools/train.py of the
+JAX package).
 
+    python -m cmda_tpu_torch.tools.train --config cs2dsec \\
+        --source-root data/cityscapes --rcs-json-dir data/cityscapes \\
+        --target-txt data/dsec/night_dataset_warp.txt \\
+        --val-txt data/dsec/night_test_dataset_warp.txt --work-dir work_dirs/b5
+    python -m cmda_tpu_torch.tools.train --config cs2dz \\
+        --source-root data/cityscapes --rcs-json-dir data/cityscapes \\
+        --target-root data/dark_zurich --work-dir work_dirs/dz
     python -m cmda_tpu_torch.tools.train --config tiny --synthetic \\
         --device cpu --max-iters 2 [--dtype bfloat16]
     python -m cmda_tpu_torch.tools.train --config cs2dsec --synthetic \\
@@ -9,6 +17,11 @@ device (mirrors tools/train.py of the JAX package).
     python -m cmda_tpu_torch.tools.train --config cs2dz --synthetic \\
         --work-dir work_dirs/dz [--teacher-bf16] [--set uda.alpha=0.99]
 
+The source is Cityscapes-IC (``--source-root``), with Rare Class Sampling
+from ``--rcs-json-dir`` when ``data.rcs_enabled``; the target is DSEC-Night
+(``--target-txt``, evaluated on ``--val-txt``) for cs2dsec, DarkZurich
+(``--target-root``, evaluated on its val split) for cs2dz.
+``python -m cmda_tpu_torch.tools.make_fake_corpus`` writes such a corpus.
 Prints ``{"done": true, "step": N, "work_dir": ...}`` at the end;
 ``main(argv)`` returns the ``TrainLoop`` (its final state in ``.state``).
 A flag of the JAX CLI whose code is not ported raises
@@ -18,8 +31,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 
 from .. import config as C
+from ..data.cityscapes_ic import CityscapesICDataset
+from ..data.dark_zurich import DarkZurichDataset
+from ..data.dsec import DSECDataset
 from ..data.synthetic import SyntheticSource, SyntheticTarget
 from ..data.uda import UDAPairDataset
 from ..train.loop import TrainLoop, load_checkpoint
@@ -27,11 +44,8 @@ from ..utils.weights import (load_pretrained_backbone, load_torch_file,
                              strip_prefix)
 
 # the JAX CLI's flags that lead to code the port does not have, by ROADMAP
-# queue A item: 3 the ablation surface, 4 the real corpora, 5 other UDA
-# variants, 7 parallelism
+# queue A item: 3 the ablation surface, 5 other UDA variants, 7 parallelism
 _UNPORTED = {
-    **dict.fromkeys(("--source-root", "--target-root", "--target-txt",
-                     "--val-txt", "--rcs-json-dir"), 4),
     **dict.fromkeys(("--multi-host", "--coordinator", "--data-parallel",
                      "--shard-opt-state", "--tensor-parallel"), 7),
     "--imnet": 5,
@@ -63,7 +77,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                    choices=["cs2dsec", "cs2dz", "tiny"])
     p.add_argument("--work-dir", default=None)
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic data (the only data ported so far)")
+                   help="synthetic data instead of the corpus files")
+    p.add_argument("--source-root", default=None,
+                   help="Cityscapes root (default: the config's)")
+    p.add_argument("--target-root", default=None,
+                   help="DarkZurich root for cs2dz (default: the config's)")
+    p.add_argument("--target-txt", default=None,
+                   help="DSEC-Night train list (night_dataset_warp.txt)")
+    p.add_argument("--val-txt", default=None,
+                   help="DSEC-Night list evaluated every eval_interval")
+    p.add_argument("--rcs-json-dir", default=None,
+                   help="the dir of samples_with_class.json and "
+                        "sample_class_stats_dict.json (Rare Class Sampling)")
     p.add_argument("--max-iters", type=int, default=None,
                    help="sets optim.max_iters, the schedule's horizon")
     p.add_argument("--batch-size", type=int, default=None)
@@ -96,10 +121,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                                       f"A item {_UNPORTED[flag]})")
     if extra:
         p.error(f"unrecognized arguments: {' '.join(extra)}")
-    if not args.synthetic:
-        raise NotImplementedError("training on the real corpora is not "
-                                  "ported, pass --synthetic (ROADMAP queue "
-                                  "A item 4)")
     return args
 
 
@@ -109,9 +130,14 @@ def build_config(args) -> C.RunConfig:
         cfg = C.replace(cfg, seed=args.seed)
     if args.dtype:
         cfg = C.replace(cfg, dtype=args.dtype)
+    data = cfg.data
     if args.batch_size:
-        cfg = C.replace(cfg, data=C.replace(cfg.data,
-                                            batch_size=args.batch_size))
+        data = C.replace(data, batch_size=args.batch_size)
+    if args.source_root:
+        data = C.replace(data, source_root=args.source_root)
+    if args.target_root:
+        data = C.replace(data, target_root=args.target_root)
+    cfg = C.replace(cfg, data=data)
     if args.max_iters:
         cfg = C.replace(cfg, optim=C.replace(cfg.optim,
                                              max_iters=args.max_iters))
@@ -121,16 +147,75 @@ def build_config(args) -> C.RunConfig:
     return cfg
 
 
-def build_datasets(cfg: C.RunConfig):
-    """The synthetic UDA pair dataset and an 8-sample test-mode val set."""
-    with_events = cfg.model.train_type.startswith("cs2dsec")
-    src = SyntheticSource(crop_size=cfg.data.crop_size,
-                          with_time_res=with_events)
-    tgt = SyntheticTarget(crop_size=cfg.data.crop_size,
-                          with_events=with_events)
-    val = SyntheticTarget(crop_size=cfg.data.crop_size, length=8,
-                          with_events=with_events, test_mode=True)
-    return UDAPairDataset(src, tgt, seed=cfg.seed), val
+def build_datasets(cfg: C.RunConfig, args):
+    """The UDA pair dataset and the val set: synthetic with
+    ``--synthetic`` (8 test-mode val samples), else CityscapesIC and
+    DSEC-Night (val from ``--val-txt``, None without it) or DarkZurich
+    (its val split), with Rare Class Sampling from ``--rcs-json-dir``
+    when ``data.rcs_enabled``."""
+    d = cfg.data
+    if args.synthetic:
+        with_events = cfg.model.train_type.startswith("cs2dsec")
+        src = SyntheticSource(crop_size=d.crop_size,
+                              with_time_res=with_events)
+        tgt = SyntheticTarget(crop_size=d.crop_size, with_events=with_events)
+        val = SyntheticTarget(crop_size=d.crop_size, length=8,
+                              with_events=with_events, test_mode=True)
+        return UDAPairDataset(src, tgt, seed=cfg.seed), val
+
+    src = CityscapesICDataset(
+        d.source_root, isr_params=d.source_isr_3 if d.shift_3_channel
+        else d.source_isr, image_crop_size=d.crop_size,
+        shift_type=d.shift_type, isr_noise=d.isr_noise,
+        isr_cow_mask=d.isr_cow_mask, flare_dir=d.flare_dir,
+        sky_noise_dir=d.sky_noise_dir, sky_mask=d.sky_mask,
+        shift_3_channel=d.shift_3_channel,
+        high_resolution_isr=d.high_resolution_isr,
+        return_gi_or_ic=d.return_gi_or_ic, decode_cache=d.decode_cache)
+    if d.target == "dsec":
+        if not args.target_txt:
+            raise ValueError("a DSEC target needs --target-txt (or "
+                             "--synthetic)")
+        # the window, bins and clip apply to train and val alike (reference
+        # my_run_experiments.py:232-238, 248-255, 352-360)
+        tgt = DSECDataset(args.target_txt, events_bins=d.events_bins,
+                          isr_params=d.target_isr,
+                          crop_size=d.target_crop_size,
+                          after_crop_resize_size=d.crop_size,
+                          image_change_range=d.image_change_range,
+                          events_clip_range=d.events_clip_range,
+                          shift_type=d.shift_type,
+                          decode_cache=d.decode_cache)
+        val = (DSECDataset(args.val_txt, events_bins=d.events_bins,
+                           isr_params=d.target_isr, test_mode=True,
+                           image_change_range=d.image_change_range,
+                           events_clip_range=d.events_clip_range,
+                           outputs=("image", "events", "label"))
+               if args.val_txt else None)
+    else:
+        target_isr = d.target_isr_3 if d.shift_3_channel else d.target_isr
+        tgt = DarkZurichDataset(d.target_root, split="train",
+                                isr_params=target_isr,
+                                image_crop_size=d.crop_size,
+                                shift_type=d.shift_type,
+                                shift_3_channel=d.shift_3_channel,
+                                auto_threshold=d.dz_auto_threshold)
+        val = DarkZurichDataset(d.target_root, split="val",
+                                isr_params=target_isr,
+                                shift_3_channel=d.shift_3_channel,
+                                auto_threshold=d.dz_auto_threshold,
+                                outputs=("image", "isr", "label"))
+    rcs = {}
+    if d.rcs_enabled and args.rcs_json_dir:
+        rcs = dict(
+            rcs=True,
+            samples_with_class=os.path.join(args.rcs_json_dir,
+                                            "samples_with_class.json"),
+            sample_class_stats=os.path.join(args.rcs_json_dir,
+                                            "sample_class_stats_dict.json"),
+            class_temp=d.rcs_class_temp, min_pixels=d.rcs_min_pixels,
+            min_crop_ratio=d.rcs_min_crop_ratio)
+    return UDAPairDataset(src, tgt, seed=cfg.seed, **rcs), val
 
 
 def init_state(trainer, cfg: C.RunConfig, args):
@@ -159,7 +244,7 @@ def init_state(trainer, cfg: C.RunConfig, args):
 def main(argv=None) -> TrainLoop:
     args = parse_args(argv)
     cfg = build_config(args)
-    dataset, val = build_datasets(cfg)
+    dataset, val = build_datasets(cfg, args)
     loop = TrainLoop(cfg, dataset=dataset, val_dataset=val,
                      work_dir=args.work_dir, num_workers=args.num_workers,
                      device=args.device)

@@ -24,6 +24,7 @@ import dataclasses
 import functools
 import inspect
 import json
+import math
 import os
 import random
 from types import SimpleNamespace
@@ -52,10 +53,12 @@ from cmda_tpu_torch import apis as tapis
 from cmda_tpu_torch import config as TC
 from cmda_tpu_torch.data import host_isr as thost
 from cmda_tpu_torch.data.dark_zurich import DarkZurichDataset as TDZ
+from cmda_tpu_torch.data.dsec import DSECDataset as TDSEC
 from cmda_tpu_torch.data.synthetic import SyntheticTarget
 from cmda_tpu_torch.models import segmentor as tseg
 from cmda_tpu_torch.ops.resize import resize_bilinear as tresize
 from cmda_tpu_torch.tools import infer as tinfer
+from cmda_tpu_torch.tools.make_fake_corpus import fabricate_dsec_with_labels
 from cmda_tpu_torch.tools import test as ttest
 from cmda_tpu_torch.tools import train as ttrain
 from cmda_tpu_torch.train import loop as tloop
@@ -561,7 +564,8 @@ def _cli_preset(models, monkeypatch):
 def test_test_cli_modes_and_show_dir(models, tmp_path, monkeypatch, capsys):
     """``tools.test.main`` on synthetic data: whole, slide, aug-test and the
     teacher give evaluate_fusion's summaries; --show-dir is renamed with
-    the score; --target-txt raises."""
+    the score; --target-txt scores the DSEC test list for a DSEC target
+    and is refused for a DarkZurich one."""
     _cli_preset(models, monkeypatch)
     ckpt = _port_checkpoint(models, tmp_path / "iter_1.pth")
     base = ["--config", "cs2dz", "--checkpoint", ckpt, "--synthetic",
@@ -592,9 +596,28 @@ def test_test_cli_modes_and_show_dir(models, tmp_path, monkeypatch, capsys):
     assert sorted(os.listdir(scored)) == ["000000.png", "000001.png"]
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == {
         "show_dir": scored}
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ttest.main(["--config", "cs2dz", "--target-txt", "x.txt",
-                    "--device", "cpu"])
+    # --target-txt: refused for the DarkZurich target; for a DSEC target
+    # (the micro cs2dsec preset, random weights) the DSEC-Night test list,
+    # scored at 440x640
+    _, test_txt = fabricate_dsec_with_labels(str(tmp_path / "dsec"), 3, 1500)
+    with pytest.raises(ValueError, match="--target-txt.*dark_zurich"):
+        ttest.main(["--config", "cs2dz", "--checkpoint", ckpt,
+                    "--target-txt", test_txt, "--device", "cpu"])
+    dsec_cfg = TC.micro_test_config()
+    monkeypatch.setitem(TC.PRESETS, "cs2dsec", lambda: dsec_cfg)
+    dsec = ttest.build_dataset(dsec_cfg, ttest.parse_args(
+        ["--config", "cs2dsec", "--target-txt", test_txt]))
+    assert isinstance(dsec, TDSEC) and dsec.test_mode and len(dsec) == 2
+    assert dsec[0]["events"].shape == (440, 640, 3)
+    dsec_ckpt = str(tmp_path / "dsec_iter_1.pth")
+    net = tapis.build_model(dsec_cfg, "cpu", seed=5)
+    torch.save({"state_dict": net.state_dict(),
+                "ema_state_dict": net.state_dict(), "step": 0}, dsec_ckpt)
+    got = ttest.main(["--config", "cs2dsec", "--checkpoint", dsec_ckpt,
+                      "--target-txt", test_txt, "--device", "cpu"])
+    assert got == tloop.evaluate_fusion(
+        tapis.init_segmentor(dsec_cfg, dsec_ckpt, device="cpu"), dsec)
+    assert math.isfinite(got["mIoU"])
 
 
 def test_submission_matches_jax_export(models, dz_root, tmp_path, monkeypatch,

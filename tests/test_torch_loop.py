@@ -448,12 +448,21 @@ def test_cli_runs_resumes_and_refuses_unported_flags(tmp_path, capsys):
     assert os.path.exists(tmp_path / "b" / "iter_3.pth")
 
     for flag, item in (("--fused-resize", 3), ("--backbone", 3),
-                       ("--isr_edge", 3), ("--target-txt", 4),
-                       ("--multi-host", 7)):
+                       ("--isr_edge", 3), ("--multi-host", 7)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tcli.parse_args(["--synthetic", flag, "x"])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tcli.parse_args(["--config", "tiny"])
+    # the corpus flags reach the config and build_datasets, which
+    # needs the DSEC list without --synthetic
+    args = tcli.parse_args(["--config", "tiny", "--source-root", "cs",
+                            "--target-root", "dz", "--target-txt", "t.txt",
+                            "--val-txt", "v.txt", "--rcs-json-dir", "rcs"])
+    cfg = tcli.build_config(args)
+    assert (cfg.data.source_root, cfg.data.target_root, args.target_txt,
+            args.val_txt, args.rcs_json_dir) == ("cs", "dz", "t.txt",
+                                                 "v.txt", "rcs")
+    args = tcli.parse_args(["--config", "tiny"])
+    with pytest.raises(ValueError, match="--target-txt"):
+        tcli.build_datasets(tcli.build_config(args), args)
     with pytest.raises(SystemExit):
         tcli.parse_args(["--synthetic", "--no-such-flag"])
     args = tcli.parse_args(["--synthetic", "--config", "cs2dz",
@@ -514,7 +523,8 @@ def test_cli_cs2dz_two_iterations(tmp_path, capsys, monkeypatch):
     the target's ISR."""
     cfg = _micro_dz()
     monkeypatch.setitem(TC.PRESETS, "cs2dz", lambda: cfg)
-    dataset, val = tcli.build_datasets(cfg)
+    dataset, val = tcli.build_datasets(cfg,
+                                       tcli.parse_args(["--synthetic"]))
     (w, h) = cfg.data.crop_size
     jsrc = jsyn.SyntheticSource(crop_size=(w, h), with_time_res=False)
     jtgt = jsyn.SyntheticTarget(crop_size=(w, h), with_events=False)

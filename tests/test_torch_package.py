@@ -1,6 +1,6 @@
 """Package rules of cmda_tpu_torch: it imports neither JAX nor the JAX
-package (checked by a clean subprocess and by an AST scan, for the package
-and for chip_smoke.py), its entry points default to the GPU, and its
+package nor the JAX package's tools (checked by a clean subprocess and by an
+AST scan of every module, for the package and for chip_smoke.py), its entry points default to the GPU, and its
 configs mirror the JAX package's field for field."""
 import ast
 import dataclasses
@@ -20,7 +20,7 @@ from cmda_tpu_torch import config as TC
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "cmda_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cmda_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cmda_tpu", "tools")
 
 
 def _forbidden(mod: str) -> bool:
@@ -43,7 +43,9 @@ def test_import_loads_no_jax_and_no_cmda_tpu():
                          text=True, env=env, cwd=str(ROOT), timeout=120)
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "cmda_tpu_torch.apis" in loaded
+    assert {"cmda_tpu_torch.apis", "cmda_tpu_torch.data.dsec",
+            "cmda_tpu_torch.data.cityscapes_ic", "cmda_tpu_torch.data.h5",
+            "cmda_tpu_torch.tools.make_fake_corpus"} <= set(loaded)
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
 

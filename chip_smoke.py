@@ -102,7 +102,23 @@ Phases, any failure exits non-zero:
      iterations. The DSEC-Night corpus (``events.h5``) needs h5py, which
      the card's machine lacks, so its run is held on the CPU only
      (``tests/test_torch_data.py``);
- 11. one JSON line of per-kernel results, the nvidia-smi line, and last
+ 11. the ISR ablation path on the same corpus files
+     (``phase_isr_options``): ``tools.train.main --config cs2dz`` at
+     MiT-b5, 512x512, batch 2, float32, 3 iterations with the source
+     options (lens flare, ISR noise, CowMix erase, the 3-channel ISR; sky
+     splice and sky-noise PNGs) and the 3-channel, noised mixed ISR
+     (launches CE 6 / dx 6 / argmax 3 / ISR 3 a step), and 2 iterations with
+     the high-resolution source ISR and the ClassMix-ed, jittered ISRs (ISR
+     0 a step); one step of the first run's config on its loader's batch
+     held against its plain-version twin on the card; the source options'
+     and the DSEC target's host parts (a 500,000-event voxel grid and its
+     norm) on one thread; the 3-channel ISR's kernel points (shifts 1, 3,
+     5) are held and timed in 3;
+ 12. C2 (``phase_pseudo_weight``): one cs2dz b5 step with
+     ``uda.pseudo_threshold`` 0 through ``apply_overrides``, against its
+     plain-version twin, with the share of pixels whose pseudo weight is
+     above 0;
+ 13. one JSON line of per-kernel results, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -352,6 +368,11 @@ ISR_DZ_STEP = (2, 512, 512)
 # infer's image-only ISR of a 1080x1920 frame with cs2dz --output-type
 # fusion: rightdown, the preset's data.target_isr (the DarkZurich values)
 ISR_TEST_INFER = (1, 1080, 1920)
+# the 3-channel mixed ISR of the step (uda.shift_3_channel): three
+# launches at [2, 512, 512], every image rightdown, one for each of
+# uda.isr_params_3 (the Cityscapes source_isr_3 values, shifts 1, 3, 5)
+ISR_3CH_STEP = (2, 512, 512)
+ISR_3CH_POINTS = ("step_3ch_shift1", "step_3ch_shift3", "step_3ch_shift5")
 # the points whose numbers the kernels line gives at its top level: those
 # earlier runs reported there
 ARGMAX_REPORTED_POINT = "serving_b8_prob"
@@ -370,6 +391,15 @@ def _isr_kw(p, shift=None):
     return dict(val_range=tuple(p.val_range), threshold=p.threshold,
                 clip_range=p.clip_range,
                 shift_pixel=p.shift_pixel if shift is None else shift)
+
+
+def _isr_3ch_kws():
+    """{ISR_3CH_POINTS name: batched_isr keywords} of the 3-channel mixed
+    ISR."""
+    from cmda_tpu_torch import config as C
+    return {name: _isr_kw(p) for name, p in zip(
+        ISR_3CH_POINTS, C.cs2dz_image_rawisr_b5().uda.isr_params_3,
+        strict=True)}
 
 
 def port_kernel_times(earlier=False):
@@ -458,6 +488,15 @@ def port_kernel_times(earlier=False):
     calls["isr_test_infer"] = (
         lambda: batched_isr(gray_t, dirs_t, **kw_t), names("batched_isr"),
         (gray_t, dirs_t, kw_t))
+    # the 3-channel mixed ISR's points, drawn after all of the above
+    for name, kw3 in _isr_3ch_kws().items():
+        gray3 = _smooth_gray(gen, *ISR_3CH_STEP, dev)
+        dirs3 = torch.full((ISR_3CH_STEP[0],), 2, dtype=torch.int32,
+                           device=dev)   # rightdown
+        calls[f"isr_{name}"] = (
+            lambda gray3=gray3, dirs3=dirs3, kw3=kw3: batched_isr(
+                gray3, dirs3, **kw3), names("batched_isr"),
+            (gray3, dirs3, kw3))
     out = {}
     for k, (fn, nm, args) in calls.items():
         dev_ms, traces = device_ms(fn, nm)
@@ -589,8 +628,9 @@ def phase_isr(gen, times):
     """The ISR kernel against ``batched_isr_plain`` at the main paths'
     shapes, both presets and shifts 1-3, and at H = 1, W = shift + 1 and a
     frame larger than the resident threads hold, each run twice giving the
-    same bits; then its times at ISR_POINTS beside the plain version's and
-    the bound."""
+    same bits; then its times at ISR_POINTS (and the cs2dz, test-path and
+    3-channel points, held there on the timed inputs) beside the plain
+    version's and the bound."""
     import torch
     from cmda_tpu_torch import config as C
     from cmda_tpu_torch.ops.isr_kernel import batched_isr, batched_isr_plain
@@ -641,15 +681,20 @@ def phase_isr(gen, times):
 
     points = {}
     for name, (b, h, w) in {**ISR_POINTS, "dz_step": ISR_DZ_STEP,
-                            "test_infer": ISR_TEST_INFER}.items():
+                            "test_infer": ISR_TEST_INFER,
+                            **dict.fromkeys(ISR_3CH_POINTS,
+                                            ISR_3CH_STEP)}.items():
         t = times[f"isr_{name}"]
         gray, dirs, kw = t["args"]
-        if name == "test_infer":   # held here, on the timed inputs
+        if name == "test_infer" or name in ISR_3CH_POINTS:
+            # held here, on the timed inputs
             out = _bitwise_repeat(lambda: batched_isr(gray, dirs, **kw),
                                   f"isr {name}")
             err = float((out - batched_isr_plain(gray, dirs, **kw)).abs()
                         .max())
-            print(f"isr {name} [{b},{h},{w}] cs2dz rightdown: max|d| "
+            print(f"isr {name} [{b},{h},{w}] rightdown, shift "
+                  f"{kw['shift_pixel']}, range {kw['val_range']}, threshold "
+                  f"{kw['threshold']}, clip {kw['clip_range']}: max|d| "
                   f"{err:.3g}; bitwise equal on a second run", flush=True)
             if not err <= ISR_TOL:
                 fail(f"isr {name}: error {err} over {ISR_TOL}")
@@ -1081,9 +1126,15 @@ TRAIN_LAUNCHES_PER_STEP_3 = {**TRAIN_LAUNCHES_PER_STEP,
 
 
 def step_launches(trainer):
-    """The launches per step of ``trainer``'s train type."""
-    return (TRAIN_LAUNCHES_PER_STEP if trainer.together
-            else TRAIN_LAUNCHES_PER_STEP_3)
+    """The launches per step of ``trainer``'s train type and mixed ISR: the
+    ISR kernel once, three times with ``uda.shift_3_channel`` (one for each
+    of ``uda.isr_params_3``), never when ``uda.mixed_image_to_mixed_isr``
+    is off (the mixed ISR is then the ClassMix of the two ISRs)."""
+    u = trainer.cfg.uda
+    isr = (0 if not u.mixed_image_to_mixed_isr
+           else len(u.isr_params_3) if u.shift_3_channel else 1)
+    return {**(TRAIN_LAUNCHES_PER_STEP if trainer.together
+               else TRAIN_LAUNCHES_PER_STEP_3), "batched_isr": isr}
 # the micro step at 64x64 (at 32x32 the micro model's dilated ASPP
 # BatchNorm amplifies float32 noise) three ways: on the card through the
 # kernels, on the card through their plain versions, and on the CPU.
@@ -1112,6 +1163,7 @@ TRAIN_BF16_KERNEL_MOMENT_RTOL = 2.0 ** -6
 # the bare step's median by phase tag ("train_cs2dz", ...) and the
 # synthetic run's steady iteration ("loop_cs2dz", ...), for the real runs
 STEP_MS_MEDIAN = {}
+STEP_PROFILED = {}     # tag: (profiled step's host ms, its device-busy ms)
 LOOP_MS_STEADY = {}
 
 
@@ -1146,12 +1198,13 @@ def _counted_step(trainer, state, batch, draws=None):
 
 
 @contextlib.contextmanager
-def _plain_versions():
-    """Route the DACS step's three kernel wrappers to their plain PyTorch
-    versions, on whatever device the tensors are."""
+def _plain_versions(isr=True):
+    """Route the DACS step's kernel wrappers to their plain PyTorch
+    versions, on whatever device the tensors are: the CE and argmax, and
+    the ISR unless ``isr`` is False."""
     from cmda_tpu_torch.ops.fused_ce import resize_ce
     from cmda_tpu_torch.ops.fused_resize import resize_argmax
-    from cmda_tpu_torch.ops.isr_kernel import batched_isr_plain
+    from cmda_tpu_torch.ops.isr_kernel import batched_isr, batched_isr_plain
     from cmda_tpu_torch.uda import dacs, transforms
 
     def plain_ce(x, label, weight=None, *, ignore_index=255):
@@ -1159,7 +1212,8 @@ def _plain_versions():
     with mock.patch.object(transforms, "fused_resize_ce", plain_ce), \
             mock.patch.object(transforms, "fused_resize_argmax",
                               resize_argmax), \
-            mock.patch.object(dacs, "batched_isr", batched_isr_plain):
+            mock.patch.object(dacs, "batched_isr",
+                              batched_isr_plain if isr else batched_isr):
         yield
 
 
@@ -1176,7 +1230,7 @@ def _check_logs(logs, ref, what):
             worst = max(worst, err if r else abs(logs[k]))
             ok = abs(logs[k] - r) <= TRAIN_LOSS_RTOL * abs(r)
         if not ok:
-            fail(f"train micro, {what}: {k} {logs[k]} vs {r}")
+            fail(f"{what}: {k} {logs[k]} vs {r}")
     return worst
 
 
@@ -1196,13 +1250,13 @@ def _check_moments(state, ref_state, rtol, what):
     scale = max(float(r.abs().max()) for r in ref)
     diff = sorted(((float((a - r).abs().max()), float(r.abs().max()), k)
                    for a, r, k in zip(got, ref, keys)), reverse=True)
-    print(f"train micro, {what}: AdamW first moments of {len(keys)} tensors, "
+    print(f"{what}: AdamW first moments of {len(keys)} tensors, "
           f"largest max|ref| {scale:.3g}; the 3 largest differences: "
           + "; ".join(f"{k} {e:.3g} (its max|ref| {sc:.3g})"
                       for e, sc, k in diff[:3]), flush=True)
     bad = [k for e, _, k in diff if rtol is not None and not e <= rtol * scale]
     if bad:
-        fail(f"train micro, {what}: AdamW first moments differ in {bad}")
+        fail(f"{what}: AdamW first moments differ in {bad}")
     return diff[0][0] / scale
 
 
@@ -1285,11 +1339,11 @@ def phase_train_micro(dtype="float32", variant=None):
     if any(fn.launches != before[k] for k, fn in counters.items()):
         fail(f"{tag}: the plain-version step launched a kernel")
     plain = {k: float(v) for k, v in plain.items()}
-    loss_plain = _check_logs(logs, plain, "kernels vs plain on cuda")
+    loss_plain = _check_logs(logs, plain, f"{tag}, kernels vs plain on cuda")
     if dtype != "float32":
         m_plain = _check_moments(s_gpu, s_plain,
                                  TRAIN_BF16_KERNEL_MOMENT_RTOL,
-                                 "bfloat16, kernels vs plain on cuda")
+                                 f"{tag}, bfloat16, kernels vs plain on cuda")
         print(f"train micro bfloat16: one step, losses max relative error "
               f"{loss_plain:.3g} (kernels vs plain on cuda), tolerance "
               f"{TRAIN_LOSS_RTOL:g}; AdamW first moments within "
@@ -1299,11 +1353,11 @@ def phase_train_micro(dtype="float32", variant=None):
               f"{plain['src/acc_seg']:.3f}/{plain['mix/acc_seg']:.3f}",
               flush=True)
         return
-    loss_cpu = _check_logs(logs, ref, "cuda vs cpu")
+    loss_cpu = _check_logs(logs, ref, f"{tag}, cuda vs cpu")
     m_plain = _check_moments(s_gpu, s_plain, TRAIN_KERNEL_MOMENT_RTOL,
-                             "kernels vs plain on cuda")
+                             f"{tag}, kernels vs plain on cuda")
     m_cpu = _check_moments(s_gpu, s_cpu, None if variant else
-                           TRAIN_MOMENT_RTOL, "cuda vs cpu")
+                           TRAIN_MOMENT_RTOL, f"{tag}, cuda vs cpu")
     extra = ""
     if variant:
         runs = []
@@ -1539,6 +1593,7 @@ def phase_train(dtype="float32", batch=None, preset="cs2dsec", options=False):
           flush=True)
     print(f"{tag} timings " + json.dumps(timings), flush=True)
     STEP_MS_MEDIAN[tag] = statistics.median(step_ms)
+    STEP_PROFILED[tag] = (prof_ms, busy_ms)
     return totals
 
 
@@ -2351,6 +2406,15 @@ def _tree_bytes(root):
                for d, _, files in os.walk(root) for f in files)
 
 
+def _median_ms(fn, reps=5):
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
 def _real_host_ms(args, cfg):
     """The host parts of a real cs2dz iteration's loader work on one
     thread, on the corpus of ``args`` (medians of 5, ms): a Cityscapes
@@ -2364,15 +2428,6 @@ def _real_host_ms(args, cfg):
     from cmda_tpu_torch.data.loader import collate
     from cmda_tpu_torch.data.wire import encode_wire
     from cmda_tpu_torch.tools import train as cli
-
-    def ms(fn):
-        out = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            fn()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(out)
-
     pairs, _ = cli.build_datasets(cfg, args)
     src, tgt = pairs.source, pairs.target
     path, dz_path = src.files[0], tgt.files[0]
@@ -2384,28 +2439,58 @@ def _real_host_ms(args, cfg):
     samples = [pairs.load(i, rng=rng) for i in range(cfg.data.batch_size)]
     batch = collate(samples)
     return {
-        "cityscapes_png_decode_resize_ms": ms(lambda: open_rgb(path).resize(
-            src.resize, Image.BILINEAR)),
-        "cityscapes_ic1_decode_resize_ms": ms(lambda: src._load_ic(path)),
-        "cityscapes_label_decode_resize_ms": ms(lambda: Image.open(
+        "cityscapes_png_decode_resize_ms": _median_ms(lambda: open_rgb(
+            path).resize(src.resize, Image.BILINEAR)),
+        "cityscapes_ic1_decode_resize_ms": _median_ms(lambda: src._load_ic(
+            path)),
+        "cityscapes_label_decode_resize_ms": _median_ms(lambda: Image.open(
             src._label_path(path)).resize(src.resize, Image.NEAREST)),
-        "cityscapes_isr_512_ms": ms(lambda: host_image_change(
+        "cityscapes_isr_512_ms": _median_ms(lambda: host_image_change(
             crop, shift_direction="rightdown", **isr_kw)),
-        "dark_zurich_png_decode_resize_ms": ms(lambda: open_rgb(
+        "dark_zurich_png_decode_resize_ms": _median_ms(lambda: open_rgb(
             dz_path).resize(tgt.resize, Image.BILINEAR)),
-        "dark_zurich_isr_960x540_ms": ms(lambda: host_image_change(
+        "dark_zurich_isr_960x540_ms": _median_ms(lambda: host_image_change(
             dz, shift_direction="rightdown", **tgt.isr_kw)),
-        "source_sample_ms": ms(lambda: src.load(0, rng=rng)),
-        "target_sample_ms": ms(lambda: tgt.load(0, rng=rng)),
-        "rcs_pair_ms": ms(lambda: pairs.load(0, rng=rng)),
-        "collate_ms": ms(lambda: collate(samples)),
-        "encode_wire_ms": ms(lambda: encode_wire(batch)),
+        "source_sample_ms": _median_ms(lambda: src.load(0, rng=rng)),
+        "target_sample_ms": _median_ms(lambda: tgt.load(0, rng=rng)),
+        "rcs_pair_ms": _median_ms(lambda: pairs.load(0, rng=rng)),
+        "collate_ms": _median_ms(lambda: collate(samples)),
+        "encode_wire_ms": _median_ms(lambda: encode_wire(batch)),
     }
 
 
-def phase_real_corpus():
+def write_real_corpus(root):
+    """Cityscapes (REAL_CS_FRAMES frames at REAL_CS_SIZE with IC1, labels
+    and the RCS JSONs) and DarkZurich (REAL_DZ_FRAMES train + val frames at
+    REAL_DZ_SIZE) under ``root`` by ``cmda_tpu_torch.tools.
+    make_fake_corpus``: {"cs", "dz", "timings"}."""
+    from cmda_tpu_torch.tools import make_fake_corpus as corpus
+    timings = {}
+    t0 = time.perf_counter()
+    cs = corpus.fabricate_cityscapes(os.path.join(root, "cityscapes"),
+                                     REAL_CS_FRAMES, REAL_CS_SIZE)
+    timings["write_cityscapes_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dz = corpus.fabricate_dark_zurich(os.path.join(root, "dark_zurich"),
+                                      REAL_DZ_FRAMES, REAL_DZ_SIZE,
+                                      splits=("train", "val"))
+    timings["write_dark_zurich_s"] = time.perf_counter() - t0
+    timings["cityscapes_bytes"] = _tree_bytes(cs)
+    timings["dark_zurich_bytes"] = _tree_bytes(dz)
+    print(f"corpus: wrote Cityscapes ({REAL_CS_FRAMES} frames at "
+          f"{REAL_CS_SIZE[0]}x{REAL_CS_SIZE[1]} with IC1, labels and the "
+          f"RCS JSONs) {timings['cityscapes_bytes']} bytes in "
+          f"{timings['write_cityscapes_s']:.2f} s, DarkZurich "
+          f"({REAL_DZ_FRAMES} train + {REAL_DZ_FRAMES} val frames at "
+          f"{REAL_DZ_SIZE[0]}x{REAL_DZ_SIZE[1]}) "
+          f"{timings['dark_zurich_bytes']} bytes in "
+          f"{timings['write_dark_zurich_s']:.2f} s", flush=True)
+    return {"cs": cs, "dz": dz, "timings": timings}
+
+
+def phase_real_corpus(corpus):
     """The cs2dz recipe on corpus files at the real frame sizes, written
-    here by ``cmda_tpu_torch.tools.make_fake_corpus``, through
+    by ``write_real_corpus`` (``corpus``), through
     ``cmda_tpu_torch.tools.train.main --config cs2dz --source-root
     --target-root --rcs-json-dir`` on cuda (MiT-b5, 512x512, batch 2,
     float32, 4 loader threads): 4 iterations, a checkpoint and an
@@ -2422,7 +2507,6 @@ def phase_real_corpus():
     from torch.profiler import ProfilerActivity, profile
     from cmda_tpu_torch.data.cityscapes_ic import CityscapesICDataset
     from cmda_tpu_torch.data.uda import UDAPairDataset
-    from cmda_tpu_torch.tools import make_fake_corpus as corpus
     from cmda_tpu_torch.tools import train as cli
     from cmda_tpu_torch.train import loop as loop_mod
     from cmda_tpu_torch.uda.dacs import DACSTrainer
@@ -2431,7 +2515,8 @@ def phase_real_corpus():
     t_phase = time.perf_counter()
     counters = _kernel_counters()
     tag = "real_cs2dz"
-    timings = {}
+    timings = dict(corpus["timings"])
+    cs, dz = corpus["cs"], corpus["dz"]
     launches = {"step": [], "eval": []}
     prof = {}
     split = {"queue": [], "encode": []}
@@ -2506,25 +2591,6 @@ def phase_real_corpus():
         return wrapper
 
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        cs = corpus.fabricate_cityscapes(os.path.join(tmp, "cityscapes"),
-                                         REAL_CS_FRAMES, REAL_CS_SIZE)
-        timings["write_cityscapes_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        dz = corpus.fabricate_dark_zurich(os.path.join(tmp, "dark_zurich"),
-                                          REAL_DZ_FRAMES, REAL_DZ_SIZE,
-                                          splits=("train", "val"))
-        timings["write_dark_zurich_s"] = time.perf_counter() - t0
-        timings["cityscapes_bytes"] = _tree_bytes(cs)
-        timings["dark_zurich_bytes"] = _tree_bytes(dz)
-        print(f"{tag}: wrote Cityscapes ({REAL_CS_FRAMES} frames at "
-              f"{REAL_CS_SIZE[0]}x{REAL_CS_SIZE[1]} with IC1, labels and the "
-              f"RCS JSONs) {timings['cityscapes_bytes']} bytes in "
-              f"{timings['write_cityscapes_s']:.2f} s, DarkZurich "
-              f"({REAL_DZ_FRAMES} train + {REAL_DZ_FRAMES} val frames at "
-              f"{REAL_DZ_SIZE[0]}x{REAL_DZ_SIZE[1]}) "
-              f"{timings['dark_zurich_bytes']} bytes in "
-              f"{timings['write_dark_zurich_s']:.2f} s", flush=True)
         work = os.path.join(tmp, "work")
         argv = ["--config", "cs2dz", "--source-root", cs, "--target-root",
                 dz, "--rcs-json-dir", cs, "--max-iters", str(REAL_ITERS),
@@ -2654,6 +2720,468 @@ def phase_real_corpus():
     return totals
 
 
+# the ISR ablation path (phase_isr_options) on the corpus files: run 1 the
+# source options and the 3-channel, noised mixed ISR, run 2 the
+# high-resolution source ISR (and the sky splice, which needs a one-channel
+# ISR) with the ISRs ClassMix-ed and jittered; lens-flare PNGs at the size
+# of Flare7K's scattering flares and gray sky-noise textures, written here
+ISR_RUN_ITERS = (3, 2)
+ISR_ALONE_STEPS = 3
+ISR_FLARES, ISR_FLARE_SIZE = 4, (1440, 1440)
+ISR_SKY_NOISE, ISR_SKY_NOISE_SIZE = 2, (1024, 512)
+# C2: the cs2dz b5 step with the pseudo threshold at 0 (as
+# tests/test_torch_train_variants.py sets it), so the pseudo weight is the
+# confidence ratio 1 outside the cropped rows
+PSEUDO_THRESHOLD = 0.0
+# the DSEC host parts on one thread: a 500,000-event window into 5 bins at
+# the event camera's 640x480, and a 640x440 frame's decode and ISR
+DSEC_EVENTS, DSEC_BINS = 500_000, 5
+
+
+def _write_isr_files(root):
+    """ISR_FLARES lens-flare PNGs (a glow and a ring on black) and
+    ISR_SKY_NOISE gray noise PNGs under ``root``: (flare dir, sky-noise
+    dir)."""
+    from PIL import Image
+    g = np.random.default_rng(11)
+    flares = os.path.join(root, "flares")
+    noise = os.path.join(root, "sky_noise")
+    os.makedirs(flares)
+    os.makedirs(noise)
+    w, h = ISR_FLARE_SIZE
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    for i in range(ISR_FLARES):
+        cx, cy = g.uniform(0.3, 0.7) * w, g.uniform(0.3, 0.7) * h
+        r = np.sqrt((xx - cx) ** 2 + (yy - cy) ** 2)
+        glow = np.exp(-0.5 * (r / (w * g.uniform(0.03, 0.1))) ** 2)
+        ring = np.exp(-0.5 * ((r - 0.2 * w) / (0.01 * w)) ** 2)
+        rgb = (glow + 0.3 * ring)[..., None] * g.uniform(150, 255, 3)
+        Image.fromarray(np.clip(rgb, 0, 255).astype(np.uint8)).save(
+            os.path.join(flares, f"flare_{i:02d}.png"))
+    nw, nh = ISR_SKY_NOISE_SIZE
+    for i in range(ISR_SKY_NOISE):
+        Image.fromarray(g.integers(0, 256, (nh, nw), np.uint8)).save(
+            os.path.join(noise, f"noise_{i:02d}.png"))
+    return flares, noise
+
+
+def _run_counted(argv, iters):
+    """``tools.train.main(argv)`` for ``iters`` iterations with the launch
+    counters set to 0 just before it, its last iteration profiled from
+    its step's start to its log record, as phase_real_corpus profiles
+    its: (loop, launches of the run, launches of each step, seconds, step
+    records, (the profiled iteration's host ms, its device-busy ms, its
+    device events))."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cmda_tpu_torch.tools import train as cli
+    from cmda_tpu_torch.train import loop as loop_mod
+    from cmda_tpu_torch.uda.dacs import DACSTrainer
+    counters = _kernel_counters()
+    per_step, prof = [], {}
+    real_step, real_log = DACSTrainer.train_step, loop_mod.TrainLoop.log
+
+    def train_step(trainer, state, batch, draws=None):
+        if state.step == iters - 1:
+            torch.cuda.synchronize()
+            prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+            prof["p"].start()
+            prof["t0"] = time.perf_counter()
+        before = {k: f.launches for k, f in counters.items()}
+        out = real_step(trainer, state, batch, draws)
+        torch.cuda.synchronize()
+        per_step.append({k: f.launches - before[k]
+                         for k, f in counters.items()})
+        return out
+
+    def log(loop, record):
+        real_log(loop, record)
+        if record.get("iter") == iters and "loss" in record:
+            torch.cuda.synchronize()
+            prof["host_ms"] = (time.perf_counter() - prof["t0"]) * 1e3
+            prof["p"].stop()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(DACSTrainer, "train_step", train_step), \
+            mock.patch.object(loop_mod.TrainLoop, "log", log):
+        loop = cli.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    totals = {k: f.launches for k, f in counters.items()}
+    with open(loop.log_path) as f:
+        steps = [r for r in map(json.loads, f) if "loss" in r]
+    if "host_ms" not in prof:
+        fail(f"the run of {iters} iterations profiled no iteration")
+    return (loop, totals, per_step, run_s, steps,
+            (prof["host_ms"],) + _busy_ms(prof["p"]))
+
+
+def _twin_step(cfg, batch, tag, timed_steps=0):
+    """One MiT-b5 step of ``cfg`` on ``batch`` through the kernels
+    (launches counted and checked), and the same step from copies of the
+    state with the same draws through their plain versions on the card:
+    (a) the CE and argmax plain, the ISR kernel kept: losses to
+    TRAIN_LOSS_RTOL, AdamW's first moments to TRAIN_KERNEL_MOMENT_RTOL of
+    the largest, as the micro step's check; (b) the ISR kernel against its
+    plain version on the grays the kernel step gave it, to ISR_TOL; (c)
+    all three plain: losses to TRAIN_LOSS_RTOL, moments to
+    TRAIN_MOMENT_RTOL, the card-vs-CPU tolerance of two steps whose
+    inputs round differently. The two ISRs differ by up to ISR_TOL; on an
+    H100 80GB HBM3 the ISR alone moved a cs2dz b5 step's moments by
+    3.9e-5 of the largest, the CE and argmax together by 2.1e-7, and the
+    largest differences sit in the events encoder's first patch
+    embedding (its projection's bias, whose moment is the model's
+    largest, and the LayerNorm after it). That this LayerNorm amplifies
+    the ISR's rounding on flat regions is a hypothesis, not measured. The
+    teacher's pseudo weights within ARGMAX_TOL in all three. Then
+    ``timed_steps`` more kernel steps on ``batch`` alone, with no loader
+    running. Returns (logs, the kernel step's pseudo weight [B, H, W],
+    launches, {check: largest error}, the timed steps' ms)."""
+    import copy
+    import torch
+    from cmda_tpu_torch.ops.isr_kernel import batched_isr_plain
+    from cmda_tpu_torch.uda import dacs
+    trainer = dacs.DACSTrainer(cfg, device="cuda")
+    state = trainer.init_state(seed=0)
+    twins = {"ce_argmax": copy.deepcopy(state), "all": copy.deepcopy(state)}
+    b, h, w = batch["source"]["image"].shape[:3]
+    draws = trainer.new_draws(state, b, (h, w))
+    weights, grays = [], []
+    real_pl, real_isr = dacs.pseudo_label_and_weight_coarse, dacs.batched_isr
+
+    def pl(*args, **kwargs):
+        label, weight = real_pl(*args, **kwargs)
+        weights.append(weight)
+        return label, weight
+
+    def isr(gray, dirs, **kwargs):
+        grays.append((gray.clone(), dirs.clone(), kwargs))
+        return real_isr(gray, dirs, **kwargs)
+    counters = _kernel_counters()
+    errors, plain = {}, {}
+    with mock.patch.object(dacs, "pseudo_label_and_weight_coarse", pl):
+        with mock.patch.object(dacs, "batched_isr", isr):
+            logs, launches = _counted_step(trainer, state, batch, draws)
+        for name, keep_isr in (("ce_argmax", True), ("all", False)):
+            before = {k: fn.launches for k, fn in counters.items()}
+            with _plain_versions(isr=not keep_isr):
+                _, lg = trainer.train_step(twins[name], batch, draws)
+            torch.cuda.synchronize()
+            moved = [k for k, fn in counters.items()
+                     if fn.launches != before[k]
+                     and not (keep_isr and k == "batched_isr")]
+            if moved:
+                fail(f"{tag}: the plain-version step ({name}) launched "
+                     f"{moved}")
+            plain[name] = {k: float(v) for k, v in lg.items()}
+    for name, rtol in (("ce_argmax", TRAIN_KERNEL_MOMENT_RTOL),
+                       ("all", TRAIN_MOMENT_RTOL)):
+        what = f"{tag}, kernels vs plain ({name}) on cuda"
+        errors[f"loss_{name}"] = _check_logs(logs, plain[name], what)
+        errors[f"moments_{name}"] = _check_moments(state, twins[name], rtol,
+                                                   what)
+    errors["isr"] = 0.0
+    for gray, dirs, kw in grays:
+        diff = (real_isr(gray, dirs, **kw)
+                - batched_isr_plain(gray, dirs, **kw)).abs()
+        errors["isr"] = max(errors["isr"], float(diff.max()))
+        if not errors["isr"] <= ISR_TOL:
+            fail(f"{tag}: the ISR kernel on the step's grays is "
+                 f"{errors['isr']} from its plain version (shift "
+                 f"{kw['shift_pixel']}), over {ISR_TOL}; "
+                 f"{int((diff > ISR_TOL).sum())} pixels over")
+    errors["pseudo_weight"] = max(float((weights[0] - x).abs().max())
+                                  for x in weights[1:])
+    if not errors["pseudo_weight"] <= ARGMAX_TOL:
+        fail(f"{tag}: the pseudo weights of the kernel and the plain steps "
+             f"differ by {errors['pseudo_weight']}")
+    step_ms = []
+    for _ in range(timed_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return logs, weights[0], launches, errors, step_ms
+
+
+def _profiled_summary(iters, profiled):
+    """The profiled iteration of a run beside the bare cs2dz step's
+    profiled step (phase_train)."""
+    host, busy, n = profiled
+    bare_host, bare_busy = STEP_PROFILED.get("train_cs2dz", (None, None))
+
+    def share(h, b):
+        return (f"host {h:.2f} ms, device busy {b:.2f} ms "
+                f"({100 * b / h:.1f}%)" if b is not None else
+                f"host {h:.2f} ms, device busy not measured")
+    return (f"iteration {iters} profiled: {share(host, busy)} over {n} "
+            "device events; the bare cs2dz step's: " + (
+                share(bare_host, bare_busy) if bare_host is not None
+                else "not run"))
+
+
+def _twin_summary(errors):
+    return (f"kernels vs plain on cuda: CE and argmax plain, losses max "
+            f"relative error {errors['loss_ce_argmax']:.3g} (tolerance "
+            f"{TRAIN_LOSS_RTOL:g}), AdamW first moments within "
+            f"{errors['moments_ce_argmax']:.3g} of the largest (tolerance "
+            f"{TRAIN_KERNEL_MOMENT_RTOL:g}); the ISR on the step's grays "
+            f"max|d| {errors['isr']:.3g} (tolerance {ISR_TOL:g}); all plain, "
+            f"losses {errors['loss_all']:.3g}, first moments "
+            f"{errors['moments_all']:.3g} (tolerance {TRAIN_MOMENT_RTOL:g}); "
+            f"pseudo weights max|d| {errors['pseudo_weight']:.3g}")
+
+
+def _isr_host_ms(cfg, cs, flares, noise):
+    """The source options' host parts on one thread (medians of 5, ms): the
+    high-resolution ISR of a raw REAL_CS_SIZE frame (the preset's source
+    shift doubled), the three host ISRs of a 512x512 crop
+    (``shift_3_channel``), the flare composite onto the crop, the sky
+    splice of its ISR (with a noise PNG), ``isr_noise_np`` and
+    ``cow_mask_np`` at 512x512, and one source sample of the cs2dsec
+    preset without options."""
+    import random
+    from PIL import Image
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.data.cityscapes_ic import CityscapesICDataset
+    from cmda_tpu_torch.data.host_isr import host_image_change, open_rgb
+    from cmda_tpu_torch.data import source_augs as sa
+    d = cfg.data
+    plain = CityscapesICDataset(cs, isr_params=d.source_isr)
+    path = plain.files[0]
+    raw = open_rgb(path)
+    box = (0, 0) + plain.crop
+    crop = raw.resize(plain.resize, Image.BILINEAR).crop(box)
+    label = np.asarray(Image.open(plain._label_path(path)).resize(
+        plain.resize, Image.NEAREST).crop(box)).astype(np.int32)
+    kw = plain.isr_kw
+    isr = host_image_change(crop, shift_direction="rightdown", **kw)
+    rng = random.Random(0)
+    p = d.source_isr
+    kw2 = dict(kw, shift_pixel=2 * p.shift_pixel)
+    dsec = C.cs2dsec_image_events_b5().data
+    dsec_src = CityscapesICDataset(cs, isr_params=dsec.source_isr)
+    return {
+        "high_resolution_isr_ms": _median_ms(lambda: host_image_change(
+            raw, shift_direction="rightdown", **kw2)),
+        "isr_3_channel_512_ms": _median_ms(lambda: [host_image_change(
+            crop, shift_direction="rightdown", **_isr_kw(q))
+            for q in d.source_isr_3]),
+        "flare_composite_ms": _median_ms(lambda: sa.flare_transform_np(
+            crop, flares, rng)),
+        "sky_splice_ms": _median_ms(lambda: sa.sky_mask_transform_np(
+            isr, label, rng, noise_dir=noise)),
+        "isr_noise_np_ms": _median_ms(lambda: sa.isr_noise_np(isr, rng)),
+        "cow_mask_np_ms": _median_ms(lambda: sa.cow_mask_np(isr.shape, rng)),
+        "cs2dsec_source_sample_ms": _median_ms(lambda: dsec_src.load(
+            0, rng=rng)),
+    }
+
+
+def _dsec_host_ms():
+    """The DSEC-Night target's host parts on one thread that need no h5py
+    (medians of 3, ms), on a window of DSEC_EVENTS events held in memory
+    (times in [0, 1], rectified float coordinates, polarities 0/1, as
+    ``DSECDataset._splat_grid`` hands them on): ``host_voxel_grid`` into
+    DSEC_BINS bins at 640x480, ``host_events_norm`` of that grid with the
+    window's clip (1.5), and a 640x480 PNG's decode and the host ISR of its
+    640x440 crop."""
+    import io as _io
+    from PIL import Image
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.data.dsec import (DSECDataset, host_events_norm,
+                                          host_voxel_grid)
+    from cmda_tpu_torch.data.host_isr import host_image_change
+    g = np.random.default_rng(3)
+    n, w, h = DSEC_EVENTS, DSECDataset.WIDTH, DSECDataset.HEIGHT
+    t = np.sort(g.uniform(0.0, 1.0, n)).astype(np.float32)
+    t[0], t[-1] = 0.0, 1.0
+    x = g.uniform(0, w - 1, n).astype(np.float32)
+    y = g.uniform(0, h - 1, n).astype(np.float32)
+    p = g.integers(0, 2, n).astype(np.float32)
+    grid = host_voxel_grid(t, x, y, p, w, h, DSEC_BINS)
+    buf = _io.BytesIO()
+    Image.fromarray(g.integers(0, 256, (h, w, 3), np.uint8)).save(
+        buf, format="PNG")
+    png = buf.getvalue()
+    frame = Image.open(_io.BytesIO(png)).convert("RGB").crop(
+        (0, 0, w, DSECDataset.TEST_ROWS))
+    kw = _isr_kw(C.cs2dsec_image_events_b5().data.target_isr)
+    return {
+        "voxel_grid_ms": _median_ms(lambda: host_voxel_grid(
+            t, x, y, p, w, h, DSEC_BINS), reps=3),
+        "events_norm_ms": _median_ms(lambda: host_events_norm(
+            grid.copy(), 1.5), reps=3),
+        "frame_png_decode_ms": _median_ms(lambda: Image.open(
+            _io.BytesIO(png)).convert("RGB"), reps=3),
+        "frame_isr_640x440_ms": _median_ms(lambda: host_image_change(
+            frame, shift_direction="rightdown", **kw), reps=3),
+    }
+
+
+def phase_isr_options(corpus):
+    """The ISR ablation path at MiT-b5, 512x512, batch 2, float32 on the
+    corpus files (``corpus``), through ``cmda_tpu_torch.tools.train.main
+    --config cs2dz``:
+    run 1, ISR_RUN_ITERS[0] iterations with ``--shift_3_channel
+    --cs_isr_noise --cs_cow_mask --random_flare --sky_mask
+    --isr_noise_dacs_type noise+blur`` (the ISR kernel 3 a step, CE 6, dx
+    6, argmax 3); run 2, ISR_RUN_ITERS[1] iterations with
+    ``--high_resolution_isr --sky_mask --set
+    uda.mixed_image_to_mixed_isr=false --isr_mix_aug`` (the ISR kernel 0 a
+    step); the sky-noise PNGs through ``--set data.sky_noise_dir``; finite
+    losses; each run's last iteration profiled (host ms against device-busy
+    ms, beside the bare cs2dz step's). Then one step of run 1's config on
+    a batch of its loader's samples held against its plain-version twin
+    (``_twin_step``) and ISR_ALONE_STEPS more of its steps timed with no
+    loader running, the source options' and the DSEC target's host parts
+    on one thread. Returns the two runs' launches."""
+    import random
+    import torch
+    from cmda_tpu_torch.data.loader import collate
+    from cmda_tpu_torch.tools import train as cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag = "isr_options"
+    cs, dz = corpus["cs"], corpus["dz"]
+    smi = smi_line()
+    results, timings = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        flares, noise = _write_isr_files(tmp)
+        base = ["--config", "cs2dz", "--source-root", cs, "--target-root",
+                dz, "--rcs-json-dir", cs, "--num-workers", "4", "--seed",
+                "0", "--set", "log_interval=1",
+                "--set", "checkpoint_interval=1000",
+                "--set", "eval_interval=1000",
+                "--set", "debug_img_interval=0", "--device", "cuda",
+                "--sky_mask", "--set", f"data.sky_noise_dir={noise}"]
+        runs = (
+            ["--shift_3_channel", "--cs_isr_noise", "--cs_cow_mask",
+             "--random_flare", flares, "--isr_noise_dacs_type",
+             "noise+blur"],
+            ["--high_resolution_isr", "--set",
+             "uda.mixed_image_to_mixed_isr=false", "--isr_mix_aug"])
+        for i, (flags, iters) in enumerate(zip(runs, ISR_RUN_ITERS)):
+            argv = base + flags + ["--max-iters", str(iters), "--work-dir",
+                                   os.path.join(tmp, f"work{i}")]
+            loop, totals, per_step, run_s, steps, profiled = _run_counted(
+                argv, iters)
+            expect = step_launches(loop.trainer)
+            want_isr = 3 if i == 0 else 0
+            if (expect["batched_isr"] != want_isr
+                    or per_step != [expect] * iters
+                    or totals != {k: iters * v for k, v in expect.items()}):
+                fail(f"{tag} run {i + 1}: launches {totals} (per step "
+                     f"{per_step}), expected {expect} a step with ISR "
+                     f"{want_isr}")
+            if [r["iter"] for r in steps] != list(range(1, iters + 1)):
+                fail(f"{tag} run {i + 1}: step records "
+                     f"{[r['iter'] for r in steps]}")
+            bad = [(r["iter"], k) for r in steps for k, v in r.items()
+                   if not math.isfinite(v)]
+            if bad:
+                fail(f"{tag} run {i + 1}: log values not finite: {bad}")
+            src = loop.dataset.source
+            sample = src.load(0, rng=random.Random(0))["img_self_res"]
+            print(f"{tag} run {i + 1}: {' '.join(flags)}: {iters} iterations "
+                  f"in {run_s:.1f} s; launches {totals} ({expect} a step); "
+                  f"losses " + ", ".join(f"{r['loss']:.5f}" for r in steps)
+                  + "; iteration ms " + ", ".join(
+                      f"{r['time'] * 1e3:.2f}" for r in steps)
+                  + "; data_time ms " + ", ".join(
+                      f"{r['data_time'] * 1e3:.2f}" for r in steps)
+                  + f"; a source sample's ISR {sample.shape}, its channels "
+                  f"{'differ' if np.ptp(sample, axis=-1).max() > 0 else 'equal'}"
+                  f"; " + _profiled_summary(iters, profiled) + f" ({smi})",
+                  flush=True)
+            timings[f"run{i + 1}"] = {
+                "iter_ms": [r["time"] * 1e3 for r in steps],
+                "data_ms": [r["data_time"] * 1e3 for r in steps],
+                "run_s": run_s, "profiled_host_ms": profiled[0],
+                "profiled_busy_ms": profiled[1],
+                "profiled_events": profiled[2]}
+            results.append(totals)
+            if i == 0:
+                args = cli.parse_args(argv)
+                cfg = loop.cfg
+                pairs, _ = cli.build_datasets(cfg, args)
+                rng = random.Random(1)
+                batch = collate([pairs.load(j, rng=rng)
+                                 for j in range(cfg.data.batch_size)])
+            del loop
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # --- one optioned step against its plain-version twin ------------
+        logs, _, launches, errors, alone = _twin_step(
+            cfg, batch, f"{tag} twin", timed_steps=ISR_ALONE_STEPS)
+        print(f"{tag} twin: one b5 step of run 1's config on its loader's "
+              f"batch, launches {launches}, loss {logs['loss']:.5f}; "
+              + _twin_summary(errors), flush=True)
+        print(f"{tag}: run 1's step alone, with no loader running, ms "
+              + ", ".join(f"{t:.2f}" for t in alone) + f", median "
+              f"{statistics.median(alone):.2f}; the bare cs2dz step's median "
+              f"{STEP_MS_MEDIAN.get('train_cs2dz', float('nan')):.2f} ms "
+              f"({smi})", flush=True)
+        timings["twin_errors"] = errors
+        timings["alone_step_ms"] = alone
+        gc.collect()
+        torch.cuda.empty_cache()
+        timings["host_ms"] = _isr_host_ms(cfg, cs, flares, noise)
+    timings["dsec_host_ms"] = dsec = _dsec_host_ms()
+    src_ms = timings["host_ms"]["cs2dsec_source_sample_ms"]
+    target_ms = (dsec["voxel_grid_ms"] + dsec["events_norm_ms"]
+                 + dsec["frame_png_decode_ms"] + dsec["frame_isr_640x440_ms"])
+    timings["cs2dsec_batch_host_s_without_h5"] = 2 * (src_ms + target_ms) / 1e3
+    timings["phase_s"] = time.perf_counter() - t_phase
+    print(f"{tag}: host parts on one thread (ms): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in timings["host_ms"].items()) + f" ({smi})",
+        flush=True)
+    print(f"{tag}: DSEC host parts on one thread (ms), {DSEC_EVENTS} events "
+          f"into {DSEC_BINS} bins at 640x480: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in dsec.items())
+          + f"; a cs2dsec batch of 2 on one worker, without the h5 slice "
+          f"(no h5py here): {timings['cs2dsec_batch_host_s_without_h5']:.3f} "
+          f"s ({smi})", flush=True)
+    print(f"{tag} timings " + json.dumps(timings), flush=True)
+    return results
+
+
+def phase_pseudo_weight():
+    """One cs2dz MiT-b5 step at 512x512 (synthetic batch 2) with
+    ``uda.pseudo_threshold`` set to PSEUDO_THRESHOLD through
+    ``apply_overrides``, held against its plain-version twin
+    (``_twin_step``); the share of pixels with a non-zero pseudo weight
+    must be above 0."""
+    import torch
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.data.synthetic import (SyntheticSource,
+                                               SyntheticTarget, uda_batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tag = "pseudo_weight"
+    cfg = C.apply_overrides(C.cs2dz_image_rawisr_b5(),
+                            [f"uda.pseudo_threshold={PSEUDO_THRESHOLD}"])
+    w, h = cfg.data.crop_size
+    batch = uda_batch(SyntheticSource(crop_size=(w, h), with_time_res=False),
+                      SyntheticTarget(crop_size=(w, h), with_events=False),
+                      [0, 1])
+    logs, weight, launches, errors, _ = _twin_step(cfg, batch, tag)
+    share = float((weight > 0).float().mean())
+    print(f"{tag}: cs2dz b5 step, uda.pseudo_threshold {PSEUDO_THRESHOLD}, "
+          f"launches {launches}; pixels with a non-zero pseudo weight "
+          f"{share:.6f} (rows {cfg.uda.pseudo_weight_ignore_top} at the top "
+          f"and {cfg.uda.pseudo_weight_ignore_bottom} at the bottom zeroed), "
+          f"mean pseudo weight {logs['pseudo_weight']:.6f}, mix/loss_seg "
+          f"{logs['mix/loss_seg']:.5f}; " + _twin_summary(errors)
+          + f" ({smi_line()})", flush=True)
+    if not share > 0:
+        fail(f"{tag}: no pixel has a non-zero pseudo weight")
+
+
 def device_time_only(root):
     """``--device-time ROOT``: build the kernels of the checkout at ROOT
     (another commit unpacked beside this one, say) and print one JSON line
@@ -2741,7 +3269,11 @@ def main():
     test_launches = phase_test()
     gc.collect()
     torch.cuda.empty_cache()
-    real_launches = phase_real_corpus()
+    with tempfile.TemporaryDirectory() as corpus_root:
+        corpus = write_real_corpus(corpus_root)
+        real_launches = phase_real_corpus(corpus)
+        isr_launches, isr_mix_launches = phase_isr_options(corpus)
+    phase_pseudo_weight()
     for r in results:
         # the serving kernels keep their serving-path count under
         # "launches"; the training path's count goes beside it, and the
@@ -2758,6 +3290,8 @@ def main():
         r["launches_loop_cs2dz"] = dz_loop_launches[r["name"]]
         r["launches_test"] = test_launches[r["name"]]
         r["launches_real_cs2dz"] = real_launches[r["name"]]
+        r["launches_isr_options"] = isr_launches[r["name"]]
+        r["launches_isr_options_mix"] = isr_mix_launches[r["name"]]
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi, flush=True)

@@ -14,12 +14,26 @@ mmseg/datasets/cityscapes_ic.py:22-272).
 * ``img_self_res``: the host ISR of the cropped image, its direction
   ``direct[x % 2][flip]`` for shift_type 'random'.
 
+The source options (reference cityscapes_ic.py:38-45, 99-116, 212-336;
+``data/source_augs.py``), drawn from the worker's ``rng`` in the JAX
+package's order:
+* ``flare_dir``: a lens-flare PNG added onto the image crop (so the ISR is
+  that of the flared crop);
+* ``shift_3_channel``: the ISR of each of three parameter sets
+  (``isr_params`` a triple), rightdown, as the three channels;
+* ``high_resolution_isr``: the ISR of the raw frame at twice the shift,
+  rightdown, then a nearest subsample to the resize and the crop (and
+  flip); not with ``shift_3_channel``;
+* ``sky_mask`` (implied by ``sky_noise_dir``): the one-channel ISR erased
+  under the sky and noise spliced around it, from the label, read even
+  when ``label`` is not an output;
+* ``isr_noise``: blur, dropout and speckle, channel by channel;
+* ``isr_cow_mask``: the ISR times one CowMix mask.
+
 Outputs: ``image``, ``img_time_res``, ``img_self_res`` (HWC float32) and
 ``label`` (HW int32). ``files`` lists the image paths, which Rare Class
 Sampling maps its JSON entries to; ``load(idx, crop_xy, flip, rng)`` lets it
-force a crop. The source augmentations (ISR noise, CowMix erase, lens flare,
-sky noise) and the 3-channel and high-resolution ISR are not ported
-(ROADMAP queue A item 4) and raise.
+force a crop.
 """
 from __future__ import annotations
 
@@ -32,6 +46,8 @@ from PIL import Image
 from .cache import DecodeCache
 from .host_isr import (host_image_change, normalize_image, open_rgb,
                        pick_shift_direction)
+from .source_augs import (cow_mask_np, flare_transform_np, isr_noise_np,
+                          sky_mask_transform_np)
 
 IC_MODES = ("image_change", "ic_wo_cyclegan", "gray_image", "events_gan",
             "events_esim")
@@ -49,16 +65,9 @@ class CityscapesICDataset:
                  high_resolution_isr: bool = False,
                  return_gi_or_ic: str = "image_change",
                  decode_cache: int = 0):
-        unported = [name for name, on in (
-            ("isr_noise", isr_noise), ("isr_cow_mask", isr_cow_mask),
-            ("flare_dir", flare_dir is not None),
-            ("sky_mask", sky_mask or sky_noise_dir is not None),
-            ("shift_3_channel", shift_3_channel),
-            ("high_resolution_isr", high_resolution_isr)) if on]
-        if unported:
-            raise NotImplementedError(
-                f"CityscapesICDataset {', '.join(unported)}: the source "
-                "augmentations are not ported (ROADMAP queue A item 4)")
+        if shift_3_channel and high_resolution_isr:
+            raise ValueError("shift_3_channel and high_resolution_isr "
+                             "exclude each other")
         if return_gi_or_ic not in IC_MODES:
             raise ValueError(f"unknown return_gi_or_ic {return_gi_or_ic!r}")
         self.root = root
@@ -68,9 +77,25 @@ class CityscapesICDataset:
         self.shift_type = shift_type
         self.return_gi_or_ic = return_gi_or_ic
         self._cache = DecodeCache(decode_cache)
-        p = isr_params
-        self.isr_kw = dict(val_range=p.val_range, threshold=p.threshold,
-                           clip_range=p.clip_range, shift_pixel=p.shift_pixel)
+        self.isr_noise = isr_noise
+        self.isr_cow_mask = isr_cow_mask
+        self.flare_dir = flare_dir
+        self.sky_noise_dir = sky_noise_dir
+        self.sky_mask = sky_mask or sky_noise_dir is not None
+        self.shift_3_channel = shift_3_channel
+        self.high_resolution_isr = high_resolution_isr
+
+        def kw(p):
+            return dict(val_range=p.val_range, threshold=p.threshold,
+                        clip_range=p.clip_range, shift_pixel=p.shift_pixel)
+        if shift_3_channel:
+            if not (isinstance(isr_params, (list, tuple))
+                    and len(isr_params) == 3):
+                raise ValueError("shift_3_channel takes three isr_params, "
+                                 f"got {isr_params!r}")
+            self.isr_kw = [kw(p) for p in isr_params]
+        else:
+            self.isr_kw = kw(isr_params)
         self.files = []
         img_root = os.path.join(root, "leftImg8bit", "train")
         if os.path.isdir(img_root):
@@ -132,18 +157,23 @@ class CityscapesICDataset:
                 self.resize, resample=Image.BILINEAR)).crop(box)
             if flip:
                 img = img.transpose(Image.FLIP_LEFT_RIGHT)
+            if self.flare_dir is not None:
+                img = flare_transform_np(img, self.flare_dir, r)
             crop_image = img
             if "image" in self.outputs:
                 out["image"] = normalize_image(img)
 
-        if "label" in self.outputs:
+        label = None
+        if "label" in self.outputs or self.sky_mask:
             lbl = self._cache.get(
                 ("lbl", path),
                 lambda: Image.open(self._label_path(path)).resize(
                     self.resize, resample=Image.NEAREST)).crop(box)
             if flip:
                 lbl = lbl.transpose(Image.FLIP_LEFT_RIGHT)
-            out["label"] = np.asarray(lbl).astype(np.int32)
+            label = np.asarray(lbl).astype(np.int32)
+            if "label" in self.outputs:
+                out["label"] = label
 
         if "img_time_res" in self.outputs:
             ic = self._cache.get(("ic", self.return_gi_or_ic, path),
@@ -155,13 +185,44 @@ class CityscapesICDataset:
                                                   arr.shape + (3,))
 
         if "img_self_res" in self.outputs:
+            out["img_self_res"] = self._isr(path, crop_image, x, y, flip,
+                                            label, r)
+        return out
+
+    def _isr(self, path, crop_image, x, y, flip, label, r):
+        """``img_self_res`` [H, W, 3] float32 of the crop at (x, y) with its
+        options applied (the module docstring's order)."""
+        if self.high_resolution_isr:
+            raw = self._cache.get(("raw", path), lambda: open_rgb(path))
+            kw = dict(self.isr_kw, shift_pixel=2 * self.isr_kw["shift_pixel"])
+            full = host_image_change(raw, shift_direction="rightdown", **kw)
+            ys = np.arange(self.resize[1]) * full.shape[0] // self.resize[1]
+            xs = np.arange(self.resize[0]) * full.shape[1] // self.resize[0]
+            isr = full[np.ix_(ys, xs)][y: y + self.crop[1],
+                                       x: x + self.crop[0]]
+            if flip:
+                isr = np.ascontiguousarray(isr[:, ::-1])
+        elif self.shift_3_channel:
+            isr = np.stack([host_image_change(
+                crop_image, shift_direction="rightdown", **kw)
+                for kw in self.isr_kw], axis=-1)
+        else:
             direction = pick_shift_direction(self.shift_type, x, int(flip))
             isr = host_image_change(crop_image, shift_direction=direction,
                                     **self.isr_kw)
-            out["img_self_res"] = np.broadcast_to(
-                isr[..., None], isr.shape + (3,)).astype(np.float32,
-                                                         copy=False)
-        return out
+        if self.sky_mask and isr.ndim == 2:
+            isr = sky_mask_transform_np(isr, label, r,
+                                        noise_dir=self.sky_noise_dir)
+        if self.isr_noise:
+            isr = (isr_noise_np(isr, r) if isr.ndim == 2 else np.stack(
+                [isr_noise_np(isr[..., i], r) for i in range(isr.shape[-1])],
+                axis=-1))
+        if self.isr_cow_mask:
+            mask = cow_mask_np(isr.shape[:2], r)
+            isr = isr * (mask if isr.ndim == 2 else mask[..., None])
+        if isr.ndim == 2:
+            isr = np.broadcast_to(isr[..., None], isr.shape + (3,))
+        return isr.astype(np.float32, copy=False)
 
     def __getitem__(self, idx):
         return self.load(idx)

@@ -95,7 +95,8 @@ class DAFormerDecoder(nn.Module):
         super().__init__()
         if cfg.fusion_type != "aspp":
             raise NotImplementedError(
-                f"fusion_type {cfg.fusion_type!r} is not ported yet")
+                f"fusion_type {cfg.fusion_type!r} is not ported (ROADMAP "
+                "queue A item 6)")
         sfx = f"_{stream}" if stream else ""
         self._embed_name, self._fuse_name = f"embed_layers{sfx}", f"fuse_layer{sfx}"
         setattr(self, self._embed_name, nn.ModuleList([
@@ -160,7 +161,9 @@ class DAFormerFusionHead(DAFormerDecoder):
                  split_cls: bool = False, events_classes: int | None = None):
         if share != "full" or split_cls or events_classes is not None:
             raise NotImplementedError(
-                "only share='full' without split classifiers is ported")
+                f"share={share!r}, split_cls={split_cls}, events_classes="
+                f"{events_classes}: only share='full' without split "
+                "classifiers is ported (ROADMAP queue A item 6)")
         super().__init__(cfg, stream="image")
         self.conv_seg = Classifier(cfg.channels, cfg.num_classes,
                                    cfg.dropout_ratio)

@@ -82,8 +82,9 @@ def build_fusion_module(kind: str, in_channels: Sequence[int],
     if kind in ("", "none", None):
         return None
     if kind not in FUSION_REGISTRY:
-        raise NotImplementedError(f"fusion {kind!r} is not ported yet "
-                                  f"(have {sorted(FUSION_REGISTRY)})")
+        raise NotImplementedError(f"fusion {kind!r} is not ported (ROADMAP "
+                                  "queue A item 6; ported: "
+                                  f"{sorted(FUSION_REGISTRY)})")
     return FUSION_REGISTRY[kind](in_channels=tuple(in_channels), remat=remat)
 
 

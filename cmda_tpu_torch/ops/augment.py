@@ -13,17 +13,21 @@ numbers):
   the [0, 1] image, through RGB <-> HSV.
 * ``gaussian_blur``: reflect-padded separable Gaussian with the reference's
   kernel-size rule and a tensor sigma.
+* ``add_noise_on_isr``: the mixed ISR's blur, dropout and speckle
+  (``uda.isr_noise_dacs_type``), its draws an ``IsrNoiseDraws``.
 
 Images are NHWC.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from .normalize import IMAGENET_MEAN, IMAGENET_STD, denorm_image, renorm_image
+from .resize import resize_bilinear
 
 # ---------------------------------------------------------------------------
 # ClassMix
@@ -185,3 +189,62 @@ def maybe_gaussian_blur(img: torch.Tensor, sigma: torch.Tensor,
     k = (reference_blur_kernel_size(img.shape[1]),
          reference_blur_kernel_size(img.shape[2]))
     return torch.where(apply, gaussian_blur(img, sigma, k), img)
+
+
+# ---------------------------------------------------------------------------
+# ISR noise (reference mmseg/models/utils/dacs_transforms.py:186-211)
+# ---------------------------------------------------------------------------
+
+
+class IsrNoiseDraws(NamedTuple):
+    """The random values of one ``add_noise_on_isr`` call on an ISR of
+    shape [B, H, W, C]: ``gate`` [] U[0, 1) (the batch-wide blur coin);
+    ``dis_thr`` [B, 1, 1, 1] U[1, 1.5); ``dis_normal`` N(0, 1) of the ISR's
+    shape; ``rnd_thr`` [B, 1, 1, 1] U[0.4, 0.6); ``intensity`` [B, 1, 1, 1]
+    U[0.1, 0.3); ``rnd_normal`` and ``noise`` N(0, 1) of the ISR's
+    shape."""
+    gate: torch.Tensor
+    dis_thr: torch.Tensor
+    dis_normal: torch.Tensor
+    rnd_thr: torch.Tensor
+    intensity: torch.Tensor
+    rnd_normal: torch.Tensor
+    noise: torch.Tensor
+
+
+def isr_noise_draws(shape, generator: torch.Generator,
+                    device) -> IsrNoiseDraws:
+    """``IsrNoiseDraws`` for an ISR of ``shape`` [B, H, W, C] from
+    ``generator``."""
+    def u(shp, lo, hi):
+        return lo + (hi - lo) * torch.rand(shp, generator=generator,
+                                           device=device)
+
+    def n():
+        return torch.randn(tuple(shape), generator=generator, device=device)
+    per = (shape[0], 1, 1, 1)
+    return IsrNoiseDraws(gate=u((), 0.0, 1.0), dis_thr=u(per, 1.0, 1.5),
+                         dis_normal=n(), rnd_thr=u(per, 0.4, 0.6),
+                         intensity=u(per, 0.1, 0.3), rnd_normal=n(),
+                         noise=n())
+
+
+def add_noise_on_isr(isr: torch.Tensor, draws: IsrNoiseDraws,
+                     transform_type: str = "noise+blur") -> torch.Tensor:
+    """Degrade an ISR batch [B, H, W, C] in [-1, 1]. 'blur': where
+    ``draws.gate`` < 0.5 (one coin for the batch, as the reference draws one
+    torch.rand(1) per call), a 2x average pool and a bilinear resize back.
+    'noise': zeroed where |dis_normal| < dis_thr fails, plus ``noise`` x
+    ``intensity`` where |rnd_normal| < rnd_thr, clipped to [-1, 1]."""
+    h, w = isr.shape[1:3]
+    out = isr
+    if "blur" in transform_type:
+        small = F.avg_pool2d(out.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+        out = torch.where(draws.gate < 0.5, resize_bilinear(small, (h, w)),
+                          out)
+    if "noise" in transform_type:
+        out = out * (draws.dis_normal.abs() < draws.dis_thr)
+        rnd_mask = draws.rnd_normal.abs() < draws.rnd_thr
+        out = out + draws.noise * draws.intensity * rnd_mask
+        out = out.clamp(-1.0, 1.0)
+    return out

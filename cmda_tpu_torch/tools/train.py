@@ -24,8 +24,22 @@ from ``--rcs-json-dir`` when ``data.rcs_enabled``; the target is DSEC-Night
 ``python -m cmda_tpu_torch.tools.make_fake_corpus`` writes such a corpus.
 Prints ``{"done": true, "step": N, "work_dir": ...}`` at the end;
 ``main(argv)`` returns the ``TrainLoop`` (its final state in ``.state``).
-A flag of the JAX CLI whose code is not ported raises
-``NotImplementedError`` naming its ROADMAP item.
+
+The JAX CLI's ablation flags (the reference launcher's,
+my_run_experiments.py:28-90) map onto config overrides as there, e.g.
+
+    python -m cmda_tpu_torch.tools.train --config cs2dz \
+        --source-root data/cityscapes --target-root data/dark_zurich \
+        --shift_3_channel --cs_isr_noise --cs_cow_mask --sky_mask \
+        --random_flare data/flares --isr_noise_dacs_type noise+blur
+
+A flag whose option the port does not train yet raises
+``NotImplementedError`` naming its ROADMAP item from the check that owns
+the option (the trainer's, a dataset's, the fusion module's or the
+head's) when that is built; the JAX CLI's flags whose code is not ported
+at all raise when they are parsed. ``--pallas-ce`` sets
+``uda.pallas_ce=true``; ``--no-pallas-ce`` is refused by the trainer: the
+port always runs its CUDA kernels.
 """
 from __future__ import annotations
 
@@ -44,29 +58,12 @@ from ..utils.weights import (load_pretrained_backbone, load_torch_file,
                              strip_prefix)
 
 # the JAX CLI's flags that lead to code the port does not have, by ROADMAP
-# queue A item: 3 the ablation surface, 5 other UDA variants, 7 parallelism
+# queue A item: 2 the fused resize, 5 fdist's frozen encoder, 7 parallelism
 _UNPORTED = {
     **dict.fromkeys(("--multi-host", "--coordinator", "--data-parallel",
                      "--shard-opt-state", "--tensor-parallel"), 7),
     "--imnet": 5,
-    **dict.fromkeys((
-        "--fused-resize", "--pallas-ce", "--no-pallas-ce",
-        "--backbone", "--fusion", "--fusion_isr", "--train_size",
-        "--day_events_generate", "--events_clip_range",
-        "--events_bins_5_avg_1", "--image_change_range", "--feature_dist",
-        "--no_plcrop", "--cs_isr_noise", "--cs_cow_mask",
-        "--high_resolution_isr", "--random_flare", "--sky_mask",
-        "--deflare_aug", "--isr_edge", "--isr_edge_class_weight",
-        "--isr_mix_aug", "--img_self_res_reg", "--cs_isr_data_type",
-        "--dz_isr_data_type", "--dz_auto_threshold", "--shift_3_channel",
-        "--share_decoder", "--half_share_decoder", "--no_share_decoder",
-        "--mixed_image_to_mixed_isr", "--isr_noise_dacs_type",
-        "--source_isr_parms", "--target_isr_parms", "--dacs_isr_parms",
-        "--without_events", "--without_isd", "--isr_no_fusion",
-        "--fuse_both_ice_and_e", "--random_choice_thres", "--isd_shift_type",
-        "--loss_weight_image", "--loss_weight_events", "--loss_weight_fusion",
-        "--loss_weight_img_self_res", "--lambda_feature_consistency",
-        "--test_mode"), 3),
+    "--fused-resize": 2,
 }
 
 
@@ -112,7 +109,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="dotted config override, e.g. uda.pseudo_threshold"
                         "=0.9 (repeatable); an option the port lacks raises "
                         "when the trainer is built")
+    p.add_argument("--pallas-ce", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="uda.pallas_ce: the fused upsample+CE and argmax "
+                        "kernels, always on in the port (--no-pallas-ce "
+                        "is refused)")
     p.add_argument("--device", default="cuda")
+    add_ablation_flags(p)
     args, extra = p.parse_known_args(argv)
     for token in extra:
         flag = token.split("=", 1)[0]
@@ -122,6 +125,215 @@ def parse_args(argv=None) -> argparse.Namespace:
     if extra:
         p.error(f"unrecognized arguments: {' '.join(extra)}")
     return args
+
+
+def add_ablation_flags(p):
+    """The reference launcher's ablation surface (my_run_experiments.py:
+    28-90) as named flags, as the JAX CLI has them; ``ablation_overrides``
+    maps them onto the config tree."""
+    g = p.add_argument_group("ablation flags (reference my_run_experiments.py)")
+    g.add_argument("--backbone", default="",
+                   choices=["", "mit_b0", "mit_b1", "mit_b2", "mit_b3",
+                            "mit_b4", "mit_b5"])
+    g.add_argument("--fusion", default="",
+                   choices=["", "caf", "af", "attf", "attfavg"])
+    g.add_argument("--fusion_isr", default="",
+                   choices=["", "caf", "af", "attf", "attfavg", "none"])
+    g.add_argument("--train_size", default="", help="e.g. 512-512")
+    g.add_argument("--day_events_generate", default="",
+                   choices=["", "image_change", "gray_image", "ic_wo_cyclegan",
+                            "gi_wo_cyclegan", "events_gan", "events_esim"])
+    g.add_argument("--events_clip_range", type=float, default=-1)
+    g.add_argument("--events_bins_5_avg_1", action="store_true")
+    g.add_argument("--image_change_range", type=int, default=-1)
+    g.add_argument("--feature_dist", type=float, default=-1)
+    g.add_argument("--no_plcrop", action="store_true")
+    g.add_argument("--cs_isr_noise", action="store_true")
+    g.add_argument("--cs_cow_mask", action="store_true")
+    g.add_argument("--high_resolution_isr", action="store_true")
+    g.add_argument("--random_flare", default="",
+                   metavar="FLARE_DIR", help="lens-flare PNG dir")
+    g.add_argument("--sky_mask", action="store_true")
+    g.add_argument("--deflare_aug", action="store_true")
+    g.add_argument("--isr_edge", type=float, default=-1,
+                   help="edge-label the ISR stream; the value is "
+                        "lambda_isr_features (reference "
+                        "my_run_experiments.py:320-322)")
+    g.add_argument("--isr_edge_class_weight", type=float, default=-1,
+                   help="edge-class CE weight w -> [1-w, w] "
+                        "(reference my_run_experiments.py:327-330)")
+    g.add_argument("--isr_mix_aug", action="store_true",
+                   help="jitter+blur the class-mixed ISR "
+                        "(reference my_run_experiments.py:285-288)")
+    g.add_argument("--img_self_res_reg", default="",
+                   choices=["", "no", "only_isr", "mixed", "average"],
+                   help="validated but functionally dead in the reference "
+                        "(dacs.py:684-699 is commented out)")
+    g.add_argument("--cs_isr_data_type", default="",
+                   choices=["", "day", "new_day"],
+                   help="source ISR default-table selector "
+                        "(reference cityscapes_ic.py:100-116)")
+    g.add_argument("--dz_isr_data_type", default="",
+                   choices=["", "night", "new_night"],
+                   help="target ISR default-table selector "
+                        "(reference dark_zurich_ic.py:110-127)")
+    g.add_argument("--dz_auto_threshold", action="store_true",
+                   help="unimplemented in the reference (raises in "
+                        "utils.py:124-125); rejected at dataset build")
+    g.add_argument("--shift_3_channel", action="store_true")
+    g.add_argument("--share_decoder", action="store_true")
+    g.add_argument("--half_share_decoder", action="store_true")
+    g.add_argument("--no_share_decoder", action="store_true")
+    g.add_argument("--mixed_image_to_mixed_isr", action="store_true")
+    g.add_argument("--isr_noise_dacs_type", default="",
+                   choices=["", "noise", "blur", "noise+blur"])
+    g.add_argument("--source_isr_parms", default="",
+                   help="lo-hi-threshold-clip-shift (5 dash-separated floats)")
+    g.add_argument("--target_isr_parms", default="")
+    g.add_argument("--dacs_isr_parms", default="")
+    g.add_argument("--without_events", action="store_true")
+    g.add_argument("--without_isd", action="store_true")
+    g.add_argument("--isr_no_fusion", action="store_true")
+    g.add_argument("--fuse_both_ice_and_e", action="store_true")
+    g.add_argument("--random_choice_thres", default="",
+                   help="float or 'a-b' linear schedule")
+    g.add_argument("--isd_shift_type", default="",
+                   choices=["", "all", "random", "rightdown"])
+    g.add_argument("--loss_weight_image", type=float, default=-1)
+    g.add_argument("--loss_weight_events", type=float, default=-1)
+    g.add_argument("--loss_weight_fusion", type=float, default=-1)
+    g.add_argument("--loss_weight_img_self_res", type=float, default=-1)
+    g.add_argument("--lambda_feature_consistency", type=float, default=-1)
+    g.add_argument("--test_mode", action="store_true",
+                   help="shrink eval/log/debug intervals for smoke runs "
+                        "(reference my_run_experiments.py:177-180)")
+
+
+_FUSION_NAMES = {"caf": "convert_avg", "af": "average",
+                 "attf": "attention", "attfavg": "attention_avg",
+                 "none": ""}
+
+
+def ablation_overrides(args) -> list:
+    """The ablation flags of ``args`` as (dotted path, value) overrides, in
+    the JAX CLI's order."""
+    ov = []
+
+    def add(path, val):
+        ov.append((path, val))
+
+    if args.backbone:
+        add("model.backbone", args.backbone)
+    if args.fusion:
+        add("model.fusion", _FUSION_NAMES[args.fusion])
+    if args.fusion_isr:
+        add("model.fusion_isr", _FUSION_NAMES[args.fusion_isr])
+    if args.train_size:
+        # the reference's table (my_run_experiments.py:212-224): the 512
+        # setting keeps the DSEC pre-resize crop at 440
+        w, h = args.train_size.split("-")
+        add("data.crop_size", f"{w},{h}")
+        tgt = "440,440" if args.train_size == "512-512" else f"{w},{h}"
+        add("data.target_crop_size", tgt)
+    if args.day_events_generate:
+        mode = {"gi_wo_cyclegan": "gray_image"}.get(
+            args.day_events_generate, args.day_events_generate)
+        add("data.return_gi_or_ic", mode)
+        add("uda.use_cyclegan_day_events",
+            args.day_events_generate in ("image_change", "gray_image"))
+    if args.events_clip_range != -1:
+        add("data.events_clip_range",
+            (args.events_clip_range, args.events_clip_range))
+    if args.events_bins_5_avg_1:
+        # train and val alike: DSECDataset averages the 5 normed bins to 1
+        # in both modes (reference dsec.py:145-147, 304-305)
+        add("data.events_bins", 5)
+    if args.image_change_range != -1:
+        add("data.image_change_range", args.image_change_range)
+    if args.feature_dist != -1:
+        add("uda.imnet_feature_dist_lambda", args.feature_dist)
+    if args.no_plcrop:
+        add("uda.pseudo_weight_ignore_top", 0)
+        add("uda.pseudo_weight_ignore_bottom", 0)
+    if args.cs_isr_noise:
+        add("data.isr_noise", True)
+    if args.cs_cow_mask:
+        add("data.isr_cow_mask", True)
+    if args.high_resolution_isr:
+        add("data.high_resolution_isr", True)
+    if args.random_flare:
+        add("data.flare_dir", args.random_flare)
+    if args.sky_mask:
+        add("data.sky_mask", True)
+    if args.deflare_aug:
+        add("uda.deflare_aug", True)
+    if args.isr_edge != -1:
+        add("uda.isr_edge", True)
+        add("uda.lambda_isr_features", args.isr_edge)
+    if args.isr_edge_class_weight != -1:
+        if not 0 <= args.isr_edge_class_weight <= 1:
+            raise ValueError("--isr_edge_class_weight must lie in [0, 1], "
+                             f"got {args.isr_edge_class_weight}")
+        add("uda.isr_edge_class_weight", args.isr_edge_class_weight)
+    if args.isr_mix_aug:
+        add("uda.isr_mix_aug", True)
+    if args.img_self_res_reg:
+        add("uda.img_self_res_reg", args.img_self_res_reg)
+    if args.cs_isr_data_type:
+        add("data.cs_isr_data_type", args.cs_isr_data_type)
+        add("data.source_isr", C.CS_ISR_PRESETS[args.cs_isr_data_type])
+        add("data.source_isr_3", C.CS_ISR_PRESETS_3[args.cs_isr_data_type])
+    if args.dz_isr_data_type:
+        add("data.dz_isr_data_type", args.dz_isr_data_type)
+        add("data.target_isr", C.DZ_ISR_PRESETS[args.dz_isr_data_type])
+        add("data.target_isr_3", C.DZ_ISR_PRESETS_3[args.dz_isr_data_type])
+    if args.dz_auto_threshold:
+        add("data.dz_auto_threshold", True)
+    if args.shift_3_channel:
+        add("uda.shift_3_channel", True)
+        add("data.shift_3_channel", True)
+    if args.share_decoder:
+        add("model.share_decoder", "full")
+    if args.half_share_decoder:
+        add("model.share_decoder", "half")
+    if args.no_share_decoder:
+        add("model.share_decoder", "none")
+    if args.mixed_image_to_mixed_isr:
+        add("uda.mixed_image_to_mixed_isr", True)
+    if args.isr_noise_dacs_type:
+        add("uda.isr_noise_dacs_type", args.isr_noise_dacs_type)
+    if args.source_isr_parms:
+        add("data.source_isr", args.source_isr_parms)
+    if args.target_isr_parms:
+        add("data.target_isr", args.target_isr_parms)
+    if args.dacs_isr_parms:
+        add("uda.isr_params", args.dacs_isr_parms)
+    if args.without_events:
+        add("uda.without_events", True)
+    if args.without_isd:
+        add("uda.without_isd", True)
+    if args.isr_no_fusion:
+        add("uda.isr_no_fusion", True)
+    if args.fuse_both_ice_and_e:
+        add("uda.fuse_both_ice_and_e", True)
+    if args.random_choice_thres:
+        add("uda.random_choice_thres", args.random_choice_thres)
+    if args.isd_shift_type:
+        add("uda.shift_type", args.isd_shift_type)
+        add("data.shift_type", args.isd_shift_type)
+    for k in ("image", "events", "fusion"):
+        v = getattr(args, f"loss_weight_{k}")
+        if v != -1:
+            add(f"uda.loss_weight_{k}", v)
+    if args.loss_weight_img_self_res != -1:
+        add("uda.loss_weight_isr", args.loss_weight_img_self_res)
+    if args.lambda_feature_consistency != -1:
+        add("uda.lambda_feature_consistency", args.lambda_feature_consistency)
+    if args.test_mode:
+        add("eval_interval", 5)
+        add("log_interval", 1)
+        add("debug_img_interval", 3)
+    return ov
 
 
 def build_config(args) -> C.RunConfig:
@@ -141,8 +353,13 @@ def build_config(args) -> C.RunConfig:
     if args.max_iters:
         cfg = C.replace(cfg, optim=C.replace(cfg.optim,
                                              max_iters=args.max_iters))
+    for path, val in ablation_overrides(args):
+        cfg = C.set_by_path(cfg, path, val)
     cfg = C.apply_overrides(cfg, args.overrides)
-    if args.teacher_bf16:   # after --set, as the JAX CLI appends it
+    # after --set, as the JAX CLI appends them to it
+    if args.pallas_ce is not None:
+        cfg = C.replace(cfg, uda=C.replace(cfg.uda, pallas_ce=args.pallas_ce))
+    if args.teacher_bf16:
         cfg = C.replace(cfg, uda=C.replace(cfg.uda, teacher_bf16=True))
     return cfg
 

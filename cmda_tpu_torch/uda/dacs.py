@@ -20,7 +20,13 @@ One ``train_step``:
      (and of the events, for the cs2dsec types); the mixed ISR recomputed
      from the mixed image (PIL-exact grayscale, then the batched ISR
      kernel, one random direction per image, or the config's fixed
-     ``shift_type``);
+     ``shift_type``; with ``uda.shift_3_channel`` three launches, rightdown,
+     one for each of ``uda.isr_params_3``, as the three channels), then
+     with ``uda.isr_noise_dacs_type`` channel 0 blurred and noised
+     (``add_noise_on_isr``) and repeated; or, with
+     ``uda.mixed_image_to_mixed_isr=False``, the ClassMix of the source and
+     target ISRs, with ``uda.isr_mix_aug`` given the mixed image's jitter
+     and blur in the (x + 1) / 2 domain;
   6. the source forward and backward, then the mixed forward and backward,
      the gradients summed by accumulation (the source activations are freed
      before the mixed forward starts), each stream's CE through the fused
@@ -66,7 +72,10 @@ update: the weights of the layers that compute in the model's dtype
 bfloat16-rounded float32, so no layer casts per call.
 
 Any other train type or option raises ``NotImplementedError`` naming it
-and its ROADMAP item.
+and its ROADMAP item. So does ``uda.pallas_ce=False`` or
+``uda.use_pallas_isr=False``: in the JAX package they choose XLA's chain
+over a Pallas kernel; the port always runs its CUDA kernels, and their
+plain PyTorch versions are the tests' reference, on no path of the card.
 """
 from __future__ import annotations
 
@@ -84,7 +93,8 @@ from ..models.common import Conv2d, Linear
 from ..models.cyclegan import (ResnetGenerator, generator_from_params,
                                init_generator)
 from ..models.segmentor import FusionEncoderDecoder, ForwardDraws
-from ..ops.augment import (class_mix_mask, jitter_factors,
+from ..ops.augment import (IsrNoiseDraws, add_noise_on_isr, class_mix_mask,
+                           isr_noise_draws, jitter_factors,
                            maybe_color_jitter_normalized, maybe_gaussian_blur,
                            one_mix, sample_class_half)
 from ..ops.isr import SHIFT_DIRECTIONS, pil_grayscale
@@ -101,11 +111,10 @@ TRAIN_TYPES = (TOGETHER, "cs2dsec_image+events", "cs2dz_image+raw-isr")
 _PORTED_UDA = {
     "fuse_both_ice_and_e": (False, 5), "isr_another_fusion": (False, 5),
     "isr_no_fusion": (False, 5), "isr_edge": (False, 5),
-    "isr_mix_aug": (False, 5), "deflare_aug": (False, 5),
-    "shift_3_channel": (False, 5), "isr_noise_dacs_type": ("", 5),
-    "source_only": (False, 5), "stacked_stream_ce": (False, 2),
-    "mixed_image_to_mixed_isr": (True, 5), "without_events": (False, 5),
+    "deflare_aug": (False, 5), "source_only": (False, 5),
+    "stacked_stream_ce": (False, 2), "without_events": (False, 5),
     "without_isd": (False, 5), "imnet_feature_dist_lambda": (0.0, 5)}
+ISR_NOISE_TYPES = ("", "noise", "blur", "noise+blur")
 
 
 @dataclass
@@ -117,7 +126,9 @@ class StepDraws:
     U[1-s, 1+s), hue [B, 1, 1] in U[-s, s)); blur_gate []; sigma [] in
     U[0.15, 1.15); isr_dirs [B] int32 in [0, 4); fwd: the drop-path
     uniforms and Dropout2d masks of the source and the mixed forward (one
-    set for both, as the JAX step passes both forwards the same rngs)."""
+    set for both, as the JAX step passes both forwards the same rngs);
+    isr_noise: the ``add_noise_on_isr`` draws of the mixed ISR's channel 0
+    [B, H, W, 1] with ``uda.isr_noise_dacs_type`` (None without it)."""
     coin: torch.Tensor
     mix_scores: torch.Tensor
     jitter_gate: torch.Tensor
@@ -126,13 +137,18 @@ class StepDraws:
     sigma: torch.Tensor
     isr_dirs: torch.Tensor
     fwd: ForwardDraws
+    isr_noise: IsrNoiseDraws | None = None
 
     def to(self, device) -> "StepDraws":
         """The same draws on ``device``."""
-        return StepDraws(**{
-            k: (v.to(device) if isinstance(v, (torch.Tensor, ForwardDraws))
-                else tuple(t.to(device) for t in v))
-            for k, v in self.__dict__.items()})
+        def move(v):
+            if v is None:
+                return None
+            if isinstance(v, (torch.Tensor, ForwardDraws)):
+                return v.to(device)
+            moved = tuple(t.to(device) for t in v)
+            return v._make(moved) if isinstance(v, IsrNoiseDraws) else moved
+        return StepDraws(**{k: move(v) for k, v in self.__dict__.items()})
 
 
 @dataclass
@@ -187,6 +203,16 @@ class DACSTrainer:
                 raise NotImplementedError(
                     f"uda.{name}={getattr(cfg.uda, name)!r} is not ported "
                     f"(ROADMAP queue A item {item})")
+        for name in ("pallas_ce", "use_pallas_isr"):
+            if not getattr(cfg.uda, name):
+                raise NotImplementedError(
+                    f"uda.{name}=False is not supported: the port always "
+                    "runs its CUDA kernels, and their plain PyTorch "
+                    "versions are for the tests only")
+        if cfg.uda.isr_noise_dacs_type not in ISR_NOISE_TYPES:
+            raise ValueError(f"uda.isr_noise_dacs_type="
+                             f"{cfg.uda.isr_noise_dacs_type!r} is not one of "
+                             f"{ISR_NOISE_TYPES}")
         if cfg.uda.shift_type == "all":
             raise NotImplementedError("uda.shift_type='all' is not ported "
                                       "(ROADMAP queue A item 2)")
@@ -249,9 +275,12 @@ class DACSTrainer:
         _refresh_teacher(teacher, ema)
         return teacher
 
-    def new_draws(self, state: DACSTrainState, batch: int) -> StepDraws:
-        """The draws of step ``state.step`` from a generator on the device
-        seeded with (cfg.seed, step)."""
+    def new_draws(self, state: DACSTrainState, batch: int,
+                  hw: tuple[int, int] | None = None) -> StepDraws:
+        """The draws of step ``state.step`` for ``batch`` images of size
+        ``hw`` (default: ``data.crop_size``, which is (W, H)) from a
+        generator on the device seeded with (cfg.seed, step). The ISR
+        noise's come last, so the other draws do not depend on it."""
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(cfg.seed * 1_000_003 + state.step)
@@ -266,11 +295,16 @@ class DACSTrainer:
                                 dev)
         isr_dirs = torch.randint(0, 4, (batch,), generator=gen, device=dev,
                                  dtype=torch.int32)
+        fwd = state.model.new_draws(batch, generator=gen, device=dev,
+                                    with_isr=self.together)
+        isr_noise = None
+        if cfg.uda.isr_noise_dacs_type and cfg.uda.mixed_image_to_mixed_isr:
+            h, w = hw if hw is not None else cfg.data.crop_size[::-1]
+            isr_noise = isr_noise_draws((batch, h, w, 1), gen, dev)
         return StepDraws(
             coin=coin, mix_scores=mix_scores, jitter_gate=jitter_gate,
             jitter=jitter, blur_gate=blur_gate, sigma=sigma,
-            isr_dirs=isr_dirs, fwd=state.model.new_draws(
-                batch, generator=gen, device=dev, with_isr=self.together))
+            isr_dirs=isr_dirs, fwd=fwd, isr_noise=isr_noise)
 
     # ------------------------------------------------------------------
     # pieces
@@ -311,20 +345,44 @@ class DACSTrainer:
         torch._foreach_mul_(ema, alpha)
         torch._foreach_add_(ema, params, alpha=beta)
 
-    def _mixed_isr(self, mixed_img, dir_idx):
-        """The mixed image's ISR: uint8 RGB, PIL-exact grayscale, then the
-        batched ISR kernel; [B, H, W, 3]."""
-        p = self.cfg.uda.isr_params
-        if self.cfg.uda.shift_type != "random":
-            dir_idx = torch.full_like(
-                dir_idx, SHIFT_DIRECTIONS.index(self.cfg.uda.shift_type))
+    @staticmethod
+    def _gray(mixed_img):
+        """The mixed image as uint8 RGB, then PIL-exact grayscale, float32
+        [B, H, W]."""
         rgb_u8 = (denorm_image(mixed_img) * 255.0).clamp(0, 255).to(
             torch.uint8)
-        gray = pil_grayscale(rgb_u8).float().contiguous()
-        isr = batched_isr(gray, dir_idx.to(torch.int32), val_range=tuple(
+        return pil_grayscale(rgb_u8).float().contiguous()
+
+    @staticmethod
+    def _isr_of_gray(gray, dir_idx, p, direction=None):
+        """One batched ISR kernel launch on ``gray`` with the parameters
+        ``p``, every image in ``direction`` when one is given, else in its
+        own of ``dir_idx``; [B, H, W]."""
+        if direction is not None:
+            dir_idx = torch.full((gray.shape[0],),
+                                 SHIFT_DIRECTIONS.index(direction),
+                                 dtype=torch.int32, device=gray.device)
+        return batched_isr(gray, dir_idx.to(torch.int32), val_range=tuple(
             p.val_range), threshold=p.threshold, clip_range=p.clip_range,
             shift_pixel=p.shift_pixel)
+
+    def _mixed_isr(self, mixed_img, dir_idx):
+        """The mixed image's ISR with ``uda.isr_params``, in the config's
+        fixed ``shift_type``, else in each image's of ``dir_idx``;
+        [B, H, W, 3]."""
+        u = self.cfg.uda
+        direction = None if u.shift_type == "random" else u.shift_type
+        isr = self._isr_of_gray(self._gray(mixed_img), dir_idx, u.isr_params,
+                                direction)
         return isr[..., None].expand(-1, -1, -1, 3)
+
+    def _mixed_isr_3ch(self, mixed_img):
+        """The 3-channel mixed ISR (``uda.shift_3_channel``): one kernel
+        launch for each of ``uda.isr_params_3``, rightdown, on one
+        grayscale, stacked as the channels; [B, H, W, 3]."""
+        gray = self._gray(mixed_img)
+        return torch.stack([self._isr_of_gray(gray, None, p, "rightdown")
+                            for p in self.cfg.uda.isr_params_3], dim=-1)
 
     def _loss_weights(self):
         u = self.cfg.uda
@@ -386,7 +444,30 @@ class DACSTrainer:
                                pseudo_weight)
         mixed_events = (one_mix(masks, day_events, night_events)
                         if self.has_events else None)
-        mixed_isr = self._mixed_isr(mixed_img, draws.isr_dirs)
+        if u.mixed_image_to_mixed_isr:
+            mixed_isr = (self._mixed_isr_3ch(mixed_img) if u.shift_3_channel
+                         else self._mixed_isr(mixed_img, draws.isr_dirs))
+            if u.isr_noise_dacs_type:
+                if draws.isr_noise is None:
+                    raise ValueError("uda.isr_noise_dacs_type needs "
+                                     "StepDraws.isr_noise")
+                noisy = add_noise_on_isr(mixed_isr[..., :1], draws.isr_noise,
+                                         u.isr_noise_dacs_type)
+                mixed_isr = noisy.expand(-1, -1, -1, mixed_isr.shape[-1])
+        else:
+            # float32, as the JAX step holds the batch: the host ISR of the
+            # DarkZurich loader comes as float64
+            mixed_isr = one_mix(masks, src["img_self_res"].float(),
+                                night_isr.float())
+            if u.isr_mix_aug:
+                # the reference's strong_transform with isr_flag
+                # (dacs.py:757-758, dacs_transforms.py:11-35)
+                isr_ms = (127.5,) * 3
+                mixed_isr = maybe_color_jitter_normalized(
+                    mixed_isr, apply_jitter, draws.jitter, mean=isr_ms,
+                    std=isr_ms)
+                mixed_isr = maybe_gaussian_blur(mixed_isr, draws.sigma,
+                                                apply_blur)
         self._mark("mix")
         return dict(day_image=day_image, day_label=day_label,
                     day_isr=src["img_self_res"], day_events=day_events,
@@ -412,6 +493,12 @@ class DACSTrainer:
         return ((P["day_image"], P["day_isr"], None),
                 (P["mixed_img"], P["mixed_isr"], None))
 
+    @staticmethod
+    def _batch_hw(batch: dict):
+        """(B, (H, W)) of the batch's source images."""
+        b, h, w = batch["source"]["image"].shape[:3]
+        return b, (h, w)
+
     def _device_batch(self, batch: dict) -> dict:
         """The batch on the device, wire-decoded (labels int32)."""
         return decode_wire(_to_device(batch, self.device))
@@ -425,7 +512,7 @@ class DACSTrainer:
         applied to a copy of the teacher: ``state`` is left unchanged."""
         batch = self._device_batch(batch)
         if draws is None:
-            draws = self.new_draws(state, batch["source"]["image"].shape[0])
+            draws = self.new_draws(state, *self._batch_hw(batch))
         ema = copy.deepcopy(state.ema_model)
         P = self._prepare(state, batch, draws, ema, self._teacher_copy(ema))
         keys = ("day_image", "day_label", "day_isr", "day_events",
@@ -447,7 +534,7 @@ class DACSTrainer:
         with the logs as 0-dim tensors on the device."""
         batch = self._device_batch(batch)
         if draws is None:
-            draws = self.new_draws(state, batch["source"]["image"].shape[0])
+            draws = self.new_draws(state, *self._batch_hw(batch))
         P = self._prepare(state, batch, draws, state.ema_model, state.teacher)
         src_in, mix_in = self._student_inputs(P)
         weights = self._loss_weights()

@@ -208,16 +208,6 @@ def test_cityscapes_ic_bitwise(corpora, numpy_host, mode, shift_type,
     assert sample["img_time_res"].strides[-1] == 0   # mono, for the wire
 
 
-@pytest.mark.parametrize("option", [
-    dict(isr_noise=True), dict(isr_cow_mask=True), dict(flare_dir="f"),
-    dict(sky_mask=True), dict(sky_noise_dir="s"),
-    dict(shift_3_channel=True), dict(high_resolution_isr=True)])
-def test_cityscapes_ic_unported_options_raise(corpora, option):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tcs.CityscapesICDataset(corpora.ours.cs, isr_params=TC.IsrParams(),
-                                **option)
-
-
 # ---------------------------------------------------------------------------
 # the h5 slice, the voxel grid and its norm
 # ---------------------------------------------------------------------------

@@ -447,10 +447,12 @@ def test_cli_runs_resumes_and_refuses_unported_flags(tmp_path, capsys):
     assert loop.state.step == 3
     assert os.path.exists(tmp_path / "b" / "iter_3.pth")
 
-    for flag, item in (("--fused-resize", 3), ("--backbone", 3),
-                       ("--isr_edge", 3), ("--multi-host", 7)):
+    for flag, item in (("--fused-resize", 2), ("--multi-host", 7)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tcli.parse_args(["--synthetic", flag, "x"])
+    # an ablation flag of the JAX CLI reaches the config
+    args = tcli.parse_args(["--synthetic", "--backbone", "mit_b0"])
+    assert tcli.build_config(args).model.backbone == "mit_b0"
     # the corpus flags reach the config and build_datasets, which
     # needs the DSEC list without --synthetic
     args = tcli.parse_args(["--config", "tiny", "--source-root", "cs",

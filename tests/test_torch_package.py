@@ -45,6 +45,7 @@ def test_import_loads_no_jax_and_no_cmda_tpu():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"cmda_tpu_torch.apis", "cmda_tpu_torch.data.dsec",
             "cmda_tpu_torch.data.cityscapes_ic", "cmda_tpu_torch.data.h5",
+            "cmda_tpu_torch.data.source_augs",
             "cmda_tpu_torch.tools.make_fake_corpus"} <= set(loaded)
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad

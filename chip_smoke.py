@@ -118,7 +118,21 @@ Phases, any failure exits non-zero:
      ``uda.pseudo_threshold`` 0 through ``apply_overrides``, against its
      plain-version twin, with the share of pixels whose pseudo weight is
      above 0;
- 13. one JSON line of per-kernel results, the nvidia-smi line, and last
+ 13. the flagship recipe's UDA ablations (``phase_uda_options``): the
+     cs2dsec MiT-b5 step at 512x512, batch 2, float32 with
+     ``isr_another_fusion`` on an events and on an ISR coin,
+     ``fuse_both_ice_and_e``, ``cs2dsec_image+events`` with
+     ``isr_no_fusion`` on either coin, ``source_only`` and
+     ``without_events``, each from one b5 state against its plain-version
+     twin with its launches checked (CE 8 / 6 / 4 by train type and
+     passes, argmax 3 or 2 under source_only, ISR 1); the coin's host read
+     timed; the JAX package's step levers together
+     (``stacked_stream_ce``, ``head_batched_train``, ``shift_type='all'``
+     and the fused resize: CE 0, argmax 3, ISR 0) against their twin and
+     timed beside phase 6's flagship step; and ``tools.train.main
+     --config cs2dsec --synthetic --fused-resize --set
+     uda.isr_another_fusion=true`` for 2 iterations;
+ 14. one JSON line of per-kernel results, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -1126,15 +1140,27 @@ TRAIN_LAUNCHES_PER_STEP_3 = {**TRAIN_LAUNCHES_PER_STEP,
 
 
 def step_launches(trainer):
-    """The launches per step of ``trainer``'s train type and mixed ISR: the
-    ISR kernel once, three times with ``uda.shift_3_channel`` (one for each
-    of ``uda.isr_params_3``), never when ``uda.mixed_image_to_mixed_isr``
-    is off (the mixed ISR is then the ClassMix of the two ISRs)."""
+    """The launches per step of ``trainer``'s train type, mixed ISR and
+    options: the ISR kernel once, three times with ``uda.shift_3_channel``
+    (one for each of ``uda.isr_params_3``), never when
+    ``uda.mixed_image_to_mixed_isr`` is off (the mixed ISR is then the
+    ClassMix of the two ISRs) or under ``uda.shift_type='all'`` (the mean
+    of four directions in plain torch, where the JAX step takes no Pallas
+    ISR either); with ``uda.source_only`` only the source pass's CE and
+    accuracy; with ``uda.stacked_stream_ce`` and four streams no CE kernel
+    (one plain checkpointed resize+CE over the stack, XLA's in the JAX
+    step)."""
     u = trainer.cfg.uda
     isr = (0 if not u.mixed_image_to_mixed_isr
-           else len(u.isr_params_3) if u.shift_3_channel else 1)
-    return {**(TRAIN_LAUNCHES_PER_STEP if trainer.together
-               else TRAIN_LAUNCHES_PER_STEP_3), "batched_isr": isr}
+           else len(u.isr_params_3) if u.shift_3_channel
+           else 0 if u.shift_type == "all" else 1)
+    base = (TRAIN_LAUNCHES_PER_STEP if trainer.together
+            else TRAIN_LAUNCHES_PER_STEP_3)
+    passes = 1 if u.source_only else 2
+    ce = (0 if trainer.together and u.stacked_stream_ce
+          else base["fused_resize_ce"] // 2 * passes)
+    return {**base, "fused_resize_ce": ce, "fused_resize_ce_dx": ce,
+            "fused_resize_argmax": 1 + passes, "batched_isr": isr}
 # the micro step at 64x64 (at 32x32 the micro model's dilated ASPP
 # BatchNorm amplifies float32 noise) three ways: on the card through the
 # kernels, on the card through their plain versions, and on the CPU.
@@ -1160,6 +1186,9 @@ TRAIN_MOMENT_RTOL = 5e-4
 TRAIN_BF16_KERNEL_MOMENT_RTOL = 2.0 ** -6
 
 
+# phase_train's timed steps after its 3 counted ones: few, so the whole
+# script stays well inside its time limit
+TRAIN_TIMED_STEPS = 3
 # the bare step's median by phase tag ("train_cs2dz", ...) and the
 # synthetic run's steady iteration ("loop_cs2dz", ...), for the real runs
 STEP_MS_MEDIAN = {}
@@ -1195,6 +1224,17 @@ def _counted_step(trainer, state, batch, draws=None):
     if bad:
         fail(f"train step logs not finite: {bad}")
     return logs, launches
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside, its default ones after."""
+    import torch
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
 
 
 @contextlib.contextmanager
@@ -1361,14 +1401,11 @@ def phase_train_micro(dtype="float32", variant=None):
     extra = ""
     if variant:
         runs = []
-        torch.backends.cudnn.deterministic = True
-        try:
+        with _deterministic_cudnn():
             for _ in range(2):
                 s = copy.deepcopy(start)
                 _, lg = gpu.train_step(s, batch, draws.to("cuda"))
                 runs.append(({k: float(v) for k, v in lg.items()}, s))
-        finally:
-            torch.backends.cudnn.deterministic = False
         if runs[0][0] != runs[1][0]:
             fail(f"{tag}: a second run from the same state gives other "
                  f"logs: {runs[0][0]} vs {runs[1][0]}")
@@ -1442,6 +1479,30 @@ def _busy_ms(prof):
     return busy / 1e3, len(spans)
 
 
+_SECTION_NAMES = {"cyclegan": "cyclegan", "ema": "ema_update",
+                  "teacher": "teacher_and_pseudo_labels",
+                  "mix": "classmix_jitter_blur_mixed_isr",
+                  "src_fwd": "source_fwd", "src_bwd": "source_bwd",
+                  "mix_fwd": "mixed_fwd", "mix_bwd": "mixed_bwd",
+                  "optimizer": "optimizer"}
+
+
+def _step_sections(trainer, state, batch, draws=None):
+    """One step with the trainer's section marks on: ({section: device ms
+    by CUDA events}, {section: [peak allocated GiB within it, live GiB at
+    its end]}, live GiB at the step's start)."""
+    import torch
+    trainer.marks = []
+    trainer.train_step(state, batch, draws)
+    torch.cuda.synchronize()
+    marks, trainer.marks = trainer.marks, None
+    breakdown = {_SECTION_NAMES[n]: a.elapsed_time(e)
+                 for (_, a, _, _), (n, e, _, _) in zip(marks, marks[1:])}
+    memory = {_SECTION_NAMES[n]: [top / 2**30, live / 2**30]
+              for n, _, top, live in marks[1:]}
+    return breakdown, memory, marks[0][3] / 2**30
+
+
 def _state_bytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1486,7 +1547,7 @@ def phase_train(dtype="float32", batch=None, preset="cs2dsec", options=False):
     src = SyntheticSource(crop_size=(w, h), with_time_res=events)
     tgt = SyntheticTarget(crop_size=(w, h), with_events=events)
     batches = [uda_batch(src, tgt, [b * i + j for j in range(b)])
-               for i in range(10)]
+               for i in range(5 + TRAIN_TIMED_STEPS)]
     student0 = [p.detach().clone() for p in state.model.parameters()]
     totals = dict.fromkeys(TRAIN_COUNTED, 0)
     ce_dtypes = set()
@@ -1526,31 +1587,17 @@ def phase_train(dtype="float32", batch=None, preset="cs2dsec", options=False):
     # the peak of the timed steps, without the copy of the student above
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
-    for i in range(5):
+    for i in range(TRAIN_TIMED_STEPS):
         t0 = time.perf_counter()
         trainer.train_step(state, batches[3 + i])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    trainer.marks = []
-    trainer.train_step(state, batches[8])
-    torch.cuda.synchronize()
-    marks, trainer.marks = trainer.marks, None
-    names = {"cyclegan": "cyclegan", "ema": "ema_update",
-             "teacher": "teacher_and_pseudo_labels",
-             "mix": "classmix_jitter_blur_mixed_isr",
-             "src_fwd": "source_fwd", "src_bwd": "source_bwd",
-             "mix_fwd": "mixed_fwd", "mix_bwd": "mixed_bwd",
-             "optimizer": "optimizer"}
-    breakdown = {names[n]: a.elapsed_time(e) for (_, a, _, _), (n, e, _, _)
-                 in zip(marks, marks[1:])}
-    # per section: the peak allocated within it and the live bytes at its end
-    memory = {names[n]: [top / 2**30, live / 2**30]
-              for n, _, top, live in marks[1:]}
-    start_gib = marks[0][3] / 2**30
+    breakdown, memory, start_gib = _step_sections(trainer, state,
+                                                  batches[-2])
     total = sum(breakdown.values())
     prof_ms, busy_ms, n_events, step_kernels = _device_busy(
-        trainer, state, batches[9])
+        trainer, state, batches[-1])
     adamw_bytes = _state_bytes(t for st in state.optimizer.state.values()
                                for k, t in st.items() if k != "step")
     teacher_bytes = (_state_bytes(state.teacher.parameters())
@@ -1579,7 +1626,8 @@ def phase_train(dtype="float32", batch=None, preset="cs2dsec", options=False):
                               for n, (k, t) in step_kernels.items()),
           flush=True)
     print(f"{tag}: step time median {statistics.median(step_ms):.2f} ms over "
-          f"5 steps ({', '.join(f'{t:.2f}' for t in step_ms)}), "
+          f"{TRAIN_TIMED_STEPS} steps "
+          f"({', '.join(f'{t:.2f}' for t in step_ms)}), "
           f"{b / statistics.median(step_ms) * 1e3:.3f} samples/s; peak device "
           f"memory {peak:.2f} GiB; AdamW state {adamw_bytes} bytes "
           f"({adamw_bytes / 2**30:.3f} GiB), teacher bfloat16 copy "
@@ -1930,11 +1978,8 @@ def phase_loop(preset="cs2dsec"):
         # calls: first the two steps as the run takes them, on copies
         # (reported), then with deterministic algorithms (held)
         usual = [step_logs(copy.deepcopy(s)) for s in (saved["state"], loaded)]
-        torch.backends.cudnn.deterministic = True
-        try:
+        with _deterministic_cudnn():
             a, b = step_logs(saved["state"]), step_logs(loaded)
-        finally:
-            torch.backends.cudnn.deterministic = False
         timings["resume_step_rel_diff_usual"] = worst(*usual)
         timings["resume_step_rel_diff_deterministic"] = worst(a, b)
         if worst(a, b) > LOOP_LOG_RTOL:
@@ -2817,10 +2862,12 @@ def _run_counted(argv, iters):
             (prof["host_ms"],) + _busy_ms(prof["p"]))
 
 
-def _twin_step(cfg, batch, tag, timed_steps=0):
+def _twin_step(cfg, batch, tag, timed_steps=0, state=None, coin=None,
+               measure=False):
     """One MiT-b5 step of ``cfg`` on ``batch`` through the kernels
     (launches counted and checked), and the same step from copies of the
-    state with the same draws through their plain versions on the card:
+    state with the same draws through their plain versions on the card,
+    all three with cuDNN's deterministic algorithms:
     (a) the CE and argmax plain, the ISR kernel kept: losses to
     TRAIN_LOSS_RTOL, AdamW's first moments to TRAIN_KERNEL_MOMENT_RTOL of
     the largest, as the micro step's check; (b) the ISR kernel against its
@@ -2836,17 +2883,30 @@ def _twin_step(cfg, batch, tag, timed_steps=0):
     the ISR's rounding on flat regions is a hypothesis, not measured. The
     teacher's pseudo weights within ARGMAX_TOL in all three. Then
     ``timed_steps`` more kernel steps on ``batch`` alone, with no loader
-    running. Returns (logs, the kernel step's pseudo weight [B, H, W],
-    launches, {check: largest error}, the timed steps' ms)."""
+    running, and with ``measure`` one step's CUDA-event sections and one
+    profiled step. The steps start from ``state`` (stepped in place), or
+    from ``init_state(seed=0)``; ``coin`` forces every step's events-vs-ISR
+    coin. Returns (logs, the kernel step's pseudo weight [B, H, W],
+    launches, {check: largest error}, {"step_ms": the timed steps' ms, the
+    peak GiB over them, and with ``measure`` "sections", "memory",
+    "start_gib", "profiled": (host ms, busy ms, device events, the port's
+    kernels)})."""
     import copy
     import torch
     from cmda_tpu_torch.ops.isr_kernel import batched_isr_plain
     from cmda_tpu_torch.uda import dacs
     trainer = dacs.DACSTrainer(cfg, device="cuda")
-    state = trainer.init_state(seed=0)
+    if state is None:
+        state = trainer.init_state(seed=0)
     twins = {"ce_argmax": copy.deepcopy(state), "all": copy.deepcopy(state)}
     b, h, w = batch["source"]["image"].shape[:3]
-    draws = trainer.new_draws(state, b, (h, w))
+
+    def new_draws():
+        d = trainer.new_draws(state, b, (h, w))
+        if coin is not None:
+            d.coin = torch.tensor(coin, device=d.coin.device)
+        return d
+    draws = new_draws()
     weights, grays = [], []
     real_pl, real_isr = dacs.pseudo_label_and_weight_coarse, dacs.batched_isr
 
@@ -2860,7 +2920,13 @@ def _twin_step(cfg, batch, tag, timed_steps=0):
         return real_isr(gray, dirs, **kwargs)
     counters = _kernel_counters()
     errors, plain = {}, {}
-    with mock.patch.object(dacs, "pseudo_label_and_weight_coarse", pl):
+    # deterministic cuDNN algorithms for the three steps: with the default
+    # ones two runs of the kernel step itself differ by 8.8e-6 (flagship)
+    # and 1.9e-5 (source_only) of the largest first moment, and by 1.4e-8
+    # and 2.6e-8 with these (NVIDIA H100 80GB HBM3), so the kernels' own
+    # effect shows above that
+    with mock.patch.object(dacs, "pseudo_label_and_weight_coarse", pl), \
+            _deterministic_cudnn():
         with mock.patch.object(dacs, "batched_isr", isr):
             logs, launches = _counted_step(trainer, state, batch, draws)
         for name, keep_isr in (("ce_argmax", True), ("all", False)):
@@ -2896,14 +2962,23 @@ def _twin_step(cfg, batch, tag, timed_steps=0):
     if not errors["pseudo_weight"] <= ARGMAX_TOL:
         fail(f"{tag}: the pseudo weights of the kernel and the plain steps "
              f"differ by {errors['pseudo_weight']}")
-    step_ms = []
+    del twins
+    torch.cuda.reset_peak_memory_stats()
+    timing = {"step_ms": []}
     for _ in range(timed_steps):
+        d = new_draws()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.train_step(state, batch)
+        trainer.train_step(state, batch, d)
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    return logs, weights[0], launches, errors, step_ms
+        timing["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    timing["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if measure:
+        (timing["sections"], timing["memory"],
+         timing["start_gib"]) = _step_sections(trainer, state, batch,
+                                               new_draws())
+        timing["profiled"] = _device_busy(trainer, state, batch)
+    return logs, weights[0], launches, errors, timing
 
 
 def _profiled_summary(iters, profiled):
@@ -3116,8 +3191,9 @@ def phase_isr_options(corpus):
             torch.cuda.empty_cache()
 
         # --- one optioned step against its plain-version twin ------------
-        logs, _, launches, errors, alone = _twin_step(
+        logs, _, launches, errors, timing = _twin_step(
             cfg, batch, f"{tag} twin", timed_steps=ISR_ALONE_STEPS)
+        alone = timing["step_ms"]
         print(f"{tag} twin: one b5 step of run 1's config on its loader's "
               f"batch, launches {launches}, loss {logs['loss']:.5f}; "
               + _twin_summary(errors), flush=True)
@@ -3180,6 +3256,237 @@ def phase_pseudo_weight():
           + f" ({smi_line()})", flush=True)
     if not share > 0:
         fail(f"{tag}: no pixel has a non-zero pseudo weight")
+
+
+# the flagship recipe's UDA ablations at MiT-b5 (cs2dsec, 512x512, batch 2,
+# float32), one step each against its plain-version twin, from one b5
+# state: (tag, train type, UDA options, the coin forced: 0.9 an events
+# coin, 0.1 an ISR coin, against random_choice_thres 0.5)
+TOGETHER = "cs2dsec_image+events_together"
+UDA_OPTION_STEPS = (
+    ("isr_another_fusion_events", TOGETHER, {"isr_another_fusion": True},
+     0.9),
+    ("isr_another_fusion_isr", TOGETHER, {"isr_another_fusion": True}, 0.1),
+    ("fuse_both_ice_and_e", TOGETHER, {"fuse_both_ice_and_e": True}, None),
+    ("isr_no_fusion_events", "cs2dsec_image+events", {"isr_no_fusion": True},
+     0.9),
+    ("isr_no_fusion_isr", "cs2dsec_image+events", {"isr_no_fusion": True},
+     0.1),
+    ("source_only", TOGETHER, {"source_only": True}, None),
+    ("without_events", TOGETHER, {"without_events": True}, None))
+# the JAX package's step levers together on the flagship (with the fused
+# resize), timed beside phase_train's flagship f32 step
+UDA_LEVERS = {"stacked_stream_ce": True, "shift_type": "all"}
+UDA_LEVER_STEPS = 3
+# each lever alone and none: one profiled step after one warm-up, from the
+# seed's state, for the device-busy time each one moves
+UDA_LEVERS_ALONE = (("none", {}, {}, False),
+                    ("stacked_stream_ce", {"stacked_stream_ce": True}, {},
+                     False),
+                    ("head_batched_train", {}, {"head_batched_train": True},
+                     False),
+                    ("shift_type_all", {"shift_type": "all"}, {}, False),
+                    ("fused_resize", {}, {}, True))
+# the coin's host read: the events-coin isr_another_fusion step (the
+# default graph plus the read) against the default step, in turns
+UDA_COIN_READ_STEPS = 3
+UDA_CLI_ITERS = 2
+
+
+def phase_uda_options():
+    """The UDA ablations and the step levers at full width (MiT-b5, cs2dsec
+    512x512, batch 2, float32, synthetic, random weights from seed 0): each
+    of UDA_OPTION_STEPS held against its plain-version twin
+    (``_twin_step``) with its launches checked; the coin's host read timed;
+    the levers (``uda.stacked_stream_ce``, ``model.head_batched_train``,
+    ``uda.shift_type='all'`` and the fused resize) held the same way and
+    timed (UDA_LEVER_STEPS steps, sections, peak and live GiB, one
+    profiled step) beside the flagship step of phase_train, and each
+    lever alone profiled (UDA_LEVERS_ALONE); then
+    ``tools.train.main --config cs2dsec --synthetic --fused-resize --set
+    uda.isr_another_fusion=true`` for UDA_CLI_ITERS iterations. Returns
+    the launches of the optioned steps and the CLI run, and the levers'
+    step's."""
+    import copy
+    import torch
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.data.synthetic import (SyntheticSource,
+                                               SyntheticTarget, uda_batch)
+    from cmda_tpu_torch.ops.resize import set_fused_int_upsample
+    from cmda_tpu_torch.uda.dacs import DACSTrainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag, smi = "uda_options", smi_line()
+    base = C.cs2dsec_image_events_b5()
+    w, h = base.data.crop_size
+    batch = uda_batch(SyntheticSource(crop_size=(w, h)),
+                      SyntheticTarget(crop_size=(w, h)), [0, 1])
+    t0 = time.perf_counter()
+    state0 = DACSTrainer(base, device="cuda").init_state(seed=0)
+    torch.cuda.synchronize()
+    print(f"{tag}: one b5 state built in {time.perf_counter() - t0:.1f} s "
+          "for every optioned step", flush=True)
+    totals = dict.fromkeys(TRAIN_COUNTED, 0)
+    timings = {}
+
+    def cfg_of(train_type, uda):
+        return C.replace(base, model=C.replace(base.model,
+                                               train_type=train_type),
+                         uda=C.replace(base.uda, **uda))
+    for name, train_type, uda, coin in UDA_OPTION_STEPS:
+        cfg = cfg_of(train_type, uda)
+        logs, _, launches, errors, _ = _twin_step(
+            cfg, batch, f"{tag} {name}", state=copy.deepcopy(state0),
+            coin=coin)
+        for k, v in launches.items():
+            totals[k] += v
+        want_events = {0.9: 1.0, 0.1: 0.0}.get(coin)
+        if uda.get("without_events"):
+            want_events = 0.0
+        if want_events is not None and logs["use_events"] != want_events:
+            fail(f"{tag} {name}: use_events {logs['use_events']}, expected "
+                 f"{want_events}")
+        if uda.get("source_only") and any(k.startswith("mix/") for k in logs):
+            fail(f"{tag} {name}: a source_only step logged the mixed pass")
+        print(f"{tag} {name}: {train_type} {uda} coin {coin}, launches "
+              f"{launches}, loss {logs['loss']:.5f}, use_events "
+              f"{logs['use_events']:.0f}; " + _twin_summary(errors)
+              + f" ({smi})", flush=True)
+        timings[name] = errors
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the coin's host read: same graph, the read the only difference
+    reads = {"default": [], "isr_another_fusion_events": []}
+    trainers = {"default": DACSTrainer(base, device="cuda"),
+                "isr_another_fusion_events": DACSTrainer(cfg_of(
+                    TOGETHER, {"isr_another_fusion": True}), device="cuda")}
+    states = {k: copy.deepcopy(state0) for k in trainers}
+    for i in range(UDA_COIN_READ_STEPS + 1):
+        for k, tr in trainers.items():
+            d = tr.new_draws(states[k], 2, (h, w))
+            d.coin = torch.tensor(0.9, device=d.coin.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_step(states[k], batch, d)
+            torch.cuda.synchronize()
+            if i:   # the first of each is a warm-up
+                reads[k].append((time.perf_counter() - t0) * 1e3)
+    del trainers, states, state0
+    gc.collect()
+    torch.cuda.empty_cache()
+    timings["coin_read_ms"] = reads
+    print(f"{tag}: the events-coin step with isr_another_fusion (one host "
+          f"read of the coin) ms " + ", ".join(
+              f"{t:.2f}" for t in reads["isr_another_fusion_events"])
+          + f", median {statistics.median(reads['isr_another_fusion_events']):.2f}"
+          f"; the default step in turns ms " + ", ".join(
+              f"{t:.2f}" for t in reads["default"]) + f", median "
+          f"{statistics.median(reads['default']):.2f} ({smi})", flush=True)
+
+    # the levers, with the fused resize
+    cfg = C.replace(cfg_of(TOGETHER, UDA_LEVERS), model=C.replace(
+        base.model, head_batched_train=True))
+    set_fused_int_upsample(True)
+    try:
+        logs, _, levers, errors, timing = _twin_step(
+            cfg, batch, f"{tag} levers", timed_steps=UDA_LEVER_STEPS,
+            measure=True)
+    finally:
+        set_fused_int_upsample(False)
+    host, busy, n_events, kernels = timing["profiled"]
+    flagship = STEP_MS_MEDIAN.get("train", float("nan"))
+    f_host, f_busy = STEP_PROFILED.get("train", (None, None))
+    timings["levers"] = {**{k: v for k, v in timing.items()
+                            if k != "profiled"},
+                         "twin_errors": errors, "profiled_host_ms": host,
+                         "profiled_busy_ms": busy,
+                         "profiled_events": n_events,
+                         "profiled_kernels": kernels}
+    med = statistics.median(timing["step_ms"])
+    print(f"{tag} levers: stacked_stream_ce, head_batched_train, "
+          f"shift_type='all', fused resize: launches {levers}, loss "
+          f"{logs['loss']:.5f}; " + _twin_summary(errors) + f"; step ms "
+          + ", ".join(f"{t:.2f}" for t in timing["step_ms"])
+          + f", median {med:.2f} against the flagship f32 step's "
+          f"{flagship:.2f} ({100 * (med / flagship - 1):+.1f}%); peak "
+          f"{timing['peak_gib']:.2f} GiB; profiled step host {host:.2f} ms, "
+          + (f"busy {busy:.2f} ms ({100 * busy / host:.1f}%)"
+             if busy is not None else "busy not measured")
+          + (f", the flagship's host {f_host:.2f} ms, busy {f_busy:.2f} ms"
+             if f_busy is not None else "") + f" ({smi})", flush=True)
+    print(f"{tag} levers: step device ms " + ", ".join(
+        f"{k} {v:.2f}" for k, v in timing["sections"].items())
+        + f"; memory GiB, live at its start {timing['start_gib']:.2f}; per "
+        "section peak / live at its end: " + ", ".join(
+            f"{k} {p:.2f} / {lv:.2f}" for k, (p, lv)
+            in timing["memory"].items()), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    alone = {}
+    for name, uda, model, fused in UDA_LEVERS_ALONE:
+        cfg = C.replace(cfg_of(TOGETHER, uda),
+                        model=C.replace(base.model, **model))
+        trainer = DACSTrainer(cfg, device="cuda")
+        state = trainer.init_state(seed=0)
+        set_fused_int_upsample(fused)
+        try:
+            trainer.train_step(state, batch)
+            host, busy, n_events, _ = _device_busy(trainer, state, batch)
+        finally:
+            set_fused_int_upsample(False)
+        alone[name] = {"host_ms": host, "busy_ms": busy, "events": n_events}
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    timings["levers_alone"] = alone
+    print(f"{tag} levers alone, one profiled step each (host ms, device "
+          "busy ms, device events): " + "; ".join(
+              f"{k} {v['host_ms']:.2f}, " + (
+                  f"{v['busy_ms']:.2f}" if v["busy_ms"] is not None
+                  else "not measured") + f", {v['events']}"
+              for k, v in alone.items()) + f" ({smi})", flush=True)
+
+    # through the train CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--config", "cs2dsec", "--synthetic", "--max-iters",
+                str(UDA_CLI_ITERS), "--fused-resize", "--set",
+                "uda.isr_another_fusion=true", "--num-workers", "2",
+                "--seed", "0", "--set", "log_interval=1",
+                "--set", "checkpoint_interval=1000",
+                "--set", "eval_interval=1000",
+                "--set", "debug_img_interval=0", "--work-dir", tmp]
+        try:
+            loop, cli, per_step, run_s, steps, profiled = _run_counted(
+                argv, UDA_CLI_ITERS)
+        finally:
+            set_fused_int_upsample(False)
+        expect = step_launches(loop.trainer)
+        if (not loop.cfg.uda.isr_another_fusion
+                or per_step != [expect] * UDA_CLI_ITERS):
+            fail(f"{tag} cli: launches per step {per_step}, expected "
+                 f"{expect}")
+        bad = [(r["iter"], k) for r in steps for k, v in r.items()
+               if not math.isfinite(v)]
+        if bad or len(steps) != UDA_CLI_ITERS:
+            fail(f"{tag} cli: records {steps}")
+        print(f"{tag} cli: tools.train.main {' '.join(argv[:8])}: "
+              f"{UDA_CLI_ITERS} iterations in {run_s:.1f} s, launches {cli}, "
+              "losses " + ", ".join(f"{r['loss']:.5f}" for r in steps)
+              + ", use_events " + ", ".join(
+                  f"{r['use_events']:.0f}" for r in steps)
+              + ", iteration ms " + ", ".join(
+                  f"{r['time'] * 1e3:.2f}" for r in steps) + f" ({smi})",
+              flush=True)
+        del loop
+    for k, v in cli.items():
+        totals[k] += v
+    timings["phase_s"] = time.perf_counter() - t_phase
+    print(f"{tag} timings " + json.dumps(timings), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals, levers
 
 
 def device_time_only(root):
@@ -3274,6 +3581,7 @@ def main():
         real_launches = phase_real_corpus(corpus)
         isr_launches, isr_mix_launches = phase_isr_options(corpus)
     phase_pseudo_weight()
+    uda_launches, lever_launches = phase_uda_options()
     for r in results:
         # the serving kernels keep their serving-path count under
         # "launches"; the training path's count goes beside it, and the
@@ -3292,6 +3600,8 @@ def main():
         r["launches_real_cs2dz"] = real_launches[r["name"]]
         r["launches_isr_options"] = isr_launches[r["name"]]
         r["launches_isr_options_mix"] = isr_mix_launches[r["name"]]
+        r["launches_uda_options"] = uda_launches[r["name"]]
+        r["launches_uda_levers"] = lever_launches[r["name"]]
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi, flush=True)

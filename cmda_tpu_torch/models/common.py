@@ -107,32 +107,60 @@ class StreamBatchNorm(nn.BatchNorm2d):
       **biased** batch variance (``nn.BatchNorm2d``'s own update keeps the
       unbiased one, so it is not used);
     * ``bn_train=True, update=False``: batch statistics, running statistics
-      untouched (the EMA teacher's forward)."""
+      untouched (the EMA teacher's forward).
+
+    ``groups=k`` (cmda_tpu.models.common.StreamBatchNorm's
+    ``stream_groups``) takes the batch as k stacked streams through a
+    shared decoder: each group is normalised by its own batch statistics,
+    as k calls one after another would be, and the running statistics take
+    the k-fold sequential update ``r' = m^k r + (1-m) sum_i m^(k-1-i) s_i``
+    in one step."""
 
     MOMENTUM = 0.9
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
-    def forward(self, x, bn_train: bool = False, update: bool = True):
+    def forward(self, x, bn_train: bool = False, update: bool = True,
+                groups: int = 1):
         if not bn_train:
             y = F.batch_norm(x.float(), self.running_mean, self.running_var,
                              self.weight, self.bias, False, 0.0, self.eps)
             return y.to(x.dtype)
         xf = x.float()
-        dims = (0, 2, 3)
+        if groups == 1:
+            dims, shape = (0, 2, 3), (1, -1, 1, 1)
+        else:   # [k, B/k, C, H, W]
+            xf = xf.reshape((groups, -1) + tuple(x.shape[1:]))
+            dims, shape = (1, 3, 4), (groups, 1, -1, 1, 1)
         mean = xf.mean(dim=dims)
         var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(min=0.0)
-        shape = (1, -1, 1, 1)
+        affine = (1, -1, 1, 1)
         y = ((xf - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
                                                       + self.eps)
-             * self.weight.reshape(shape) + self.bias.reshape(shape))
+             * self.weight.reshape(affine) + self.bias.reshape(affine))
         if update:
-            m = self.MOMENTUM
-            with torch.no_grad():
-                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
-                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
-        return y.to(x.dtype)
+            self._update_running(mean.detach().reshape(groups, -1),
+                                 var.detach().reshape(groups, -1))
+        return y.reshape(x.shape).to(x.dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var):
+        """The running statistics after ``len(mean)`` sequential updates
+        with the groups' statistics ``mean``, ``var`` [k, C]."""
+        m, k = self.MOMENTUM, mean.shape[0]
+        if k == 1:
+            self.running_mean.mul_(m).add_(mean[0], alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var[0], alpha=1.0 - m)
+            return
+        # in float32, as the JAX package weighs them
+        w = (1.0 - m) * torch.pow(
+            torch.tensor(m, dtype=torch.float32, device=mean.device),
+            torch.arange(k - 1, -1, -1, dtype=torch.float32,
+                         device=mean.device))
+        decay = m ** k
+        self.running_mean.copy_(decay * self.running_mean + w @ mean)
+        self.running_var.copy_(decay * self.running_var + w @ var)
 
 
 class ConvBNReLU(nn.Module):
@@ -148,8 +176,9 @@ class ConvBNReLU(nn.Module):
                            dilation=dilation, groups=groups, bias=False)
         self.bn = StreamBatchNorm(features)
 
-    def forward(self, x, bn_train: bool = False, update: bool = True):
-        return F.relu(self.bn(self.conv(x), bn_train, update))
+    def forward(self, x, bn_train: bool = False, update: bool = True,
+                groups: int = 1):
+        return F.relu(self.bn(self.conv(x), bn_train, update, groups))
 
 
 @torch.no_grad()

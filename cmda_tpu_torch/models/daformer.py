@@ -23,9 +23,9 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from .common import ConvBNReLU, Linear, divide_by
+from ..ops.resize import upsample_bilinear_nchw
 
 
 @dataclass(frozen=True)
@@ -51,9 +51,11 @@ class SepConvBNReLU(nn.Module):
                                          groups=in_channels)
         self.pointwise_conv = ConvBNReLU(in_channels, features, 1)
 
-    def forward(self, x, bn_train: bool = False, update: bool = True):
-        return self.pointwise_conv(self.depthwise_conv(x, bn_train, update),
-                                   bn_train, update)
+    def forward(self, x, bn_train: bool = False, update: bool = True,
+                groups: int = 1):
+        return self.pointwise_conv(
+            self.depthwise_conv(x, bn_train, update, groups), bn_train,
+            update, groups)
 
 
 class SepASPP(nn.Module):
@@ -68,10 +70,12 @@ class SepASPP(nn.Module):
             for d in dilations])
         self.bottleneck = ConvBNReLU(len(dilations) * channels, channels, 3)
 
-    def forward(self, x, bn_train: bool = False, update: bool = True):
+    def forward(self, x, bn_train: bool = False, update: bool = True,
+                groups: int = 1):
         return self.bottleneck(
-            torch.cat([m(x, bn_train, update) for m in self.aspp_modules],
-                      dim=1), bn_train, update)
+            torch.cat([m(x, bn_train, update, groups)
+                       for m in self.aspp_modules], dim=1),
+            bn_train, update, groups)
 
 
 class MLPEmbed(nn.Module):
@@ -105,18 +109,15 @@ class DAFormerDecoder(nn.Module):
             cfg.embed_dim * len(cfg.in_channels), cfg.channels,
             cfg.aspp_dilations))
 
-    def decode(self, feats, bn_train: bool = False, update: bool = True):
-        target = feats[0].shape[2:]
-        embeds = []
-        for layer, f in zip(getattr(self, self._embed_name), feats):
-            e = layer(f)
-            if e.shape[2:] != target:
-                e = F.interpolate(e.float(), size=tuple(target),
-                                  mode="bilinear", align_corners=False
-                                  ).to(e.dtype)
-            embeds.append(e)
+    def decode(self, feats, bn_train: bool = False, update: bool = True,
+               groups: int = 1):
+        """``groups``: the feats hold that many streams stacked along the
+        batch, each normalised by its own batch statistics."""
+        target = tuple(feats[0].shape[2:])
+        embeds = [upsample_bilinear_nchw(layer(f), target)
+                  for layer, f in zip(getattr(self, self._embed_name), feats)]
         return getattr(self, self._fuse_name)(torch.cat(embeds, dim=1),
-                                              bn_train, update)
+                                              bn_train, update, groups)
 
     def forward(self, feats, bn_train: bool = False, update: bool = True):
         return self.decode(feats, bn_train, update)
@@ -155,10 +156,13 @@ class DAFormerFusionHead(DAFormerDecoder):
 
     In eval mode (BN on running statistics) several streams are decoded as
     one batch stacked along dim 0 and split back, which equals the
-    per-stream loop."""
+    per-stream loop; with ``batched_train`` (``model.head_batched_train``)
+    also with batch statistics, each stream a group of the grouped
+    ``StreamBatchNorm``."""
 
     def __init__(self, cfg: DAFormerHeadConfig, share: str = "full",
-                 split_cls: bool = False, events_classes: int | None = None):
+                 split_cls: bool = False, events_classes: int | None = None,
+                 batched_train: bool = False):
         if share != "full" or split_cls or events_classes is not None:
             raise NotImplementedError(
                 f"share={share!r}, split_cls={split_cls}, events_classes="
@@ -167,6 +171,7 @@ class DAFormerFusionHead(DAFormerDecoder):
         super().__init__(cfg, stream="image")
         self.conv_seg = Classifier(cfg.channels, cfg.num_classes,
                                    cfg.dropout_ratio)
+        self.batched_train = batched_train
 
     def forward(self, feats: dict, streams=None, *, train: bool = False,
                 bn_train: bool | None = None, bn_update: bool = True,
@@ -176,15 +181,18 @@ class DAFormerFusionHead(DAFormerDecoder):
         'fusion_output', 'img_self_res_output'} stride-4 logits [B, C, h, w]
         (None where the input is missing or not in ``streams``).
 
-        ``bn_train`` defaults to ``train``. With running-statistics BN,
-        several streams are decoded as one batch stacked along dim 0 and
-        split back, which equals the per-stream loop. With batch statistics
-        the streams go one after another through the shared decoder, in the
+        ``bn_train`` defaults to ``train``. With running-statistics BN, or
+        with ``batched_train``, several streams are decoded as one batch
+        stacked along dim 0 and split back; with batch statistics each
+        stream is a group of the decoder's BatchNorms, which gives the
+        values and running statistics of the per-stream loop. Otherwise the
+        streams go one after another through the shared decoder, in the
         order image, events, fusion, isr, each moving the running statistics
         in turn. ``dropout_keep`` [S, B, C] holds the Dropout2d keep-masks of
         the S decoded streams in that order (needed when ``train``): four
         with the ISR stream, three (image, events, fusion) without it, as
-        the JAX head draws one mask per stream it decodes."""
+        the JAX head draws one mask per stream it decodes (the batched head
+        draws one [S*B] mask, the same masks stacked)."""
         bn = train if bn_train is None else bn_train
         plan = [("image", "image_output", feats.get("f_image")),
                 ("events", "events_output", feats.get("f_events")),
@@ -195,15 +203,20 @@ class DAFormerFusionHead(DAFormerDecoder):
         out = {k: None for _, k, _ in plan}
         if train and self.conv_seg.dropout_ratio > 0 and dropout_keep is None:
             raise ValueError("train=True needs the Dropout2d keep-masks")
-        if len(active) > 1 and not bn and not train:
+        if len(active) > 1 and (not bn or self.batched_train):
+            n = len(active)
             stacked = [torch.cat([f[i] for _, f in active], dim=0)
                        for i in range(len(active[0][1]))]
-            logits = self.conv_seg(self.decode(stacked))
-            for key, part in zip([k for k, _ in active],
-                                 logits.chunk(len(active), dim=0)):
+            keep = (dropout_keep[:n].reshape(-1, dropout_keep.shape[-1])
+                    if train and dropout_keep is not None else None)
+            logits = self.conv_seg(
+                self.decode(stacked, bn, bn_update, groups=n if bn else 1),
+                keep)
+            for (key, _), part in zip(active, logits.chunk(n, dim=0)):
                 out[key] = part
             return out
         for j, (key, f) in enumerate(active):
-            keep = dropout_keep[j] if train else None
+            keep = (dropout_keep[j] if train and dropout_keep is not None
+                    else None)
             out[key] = self.conv_seg(self.decode(f, bn, bn_update), keep)
         return out

@@ -16,6 +16,14 @@ double-batch pass through ``backbone_events``, so its uniforms are
 the ISR input (the single-batch forward of ``cs2dz_image+raw-isr`` and
 ``cs2dsec_image+events``, whose second input is the ISR or the events) the
 events backbone takes [depth, 2, B] and three streams are decoded.
+
+Training runs in the modes ``default`` (``fusion_module`` on the image and
+events pyramids), ``fusion_isr`` (``fusion_isr_module`` on the image and the
+ISR pyramid, or the events pyramid when the single batch carries the ISR
+as its events input) and ``fusion_all`` (the mean of both modules, the
+events+ISR double batch only); each fusion module takes its own drop-path
+uniforms, which the JAX forward draws from the module's own key, so one
+``ForwardDraws`` serves every mode.
 """
 from __future__ import annotations
 
@@ -64,14 +72,17 @@ class ForwardDraws:
     """Random draws of one training forward. Drop-path uniforms are U[0, 1)
     per encoder stage, ``image`` [depth_s, 2, B] and ``events``
     [depth_s, 2, 2B] for the events+ISR double batch ([depth_s, 2, B]
-    without the ISR input), and ``fusion`` [n_blocks, 2, B] for the fusion
-    module; ``dropout_keep`` [S, B, C] are the classifier's channel
+    without the ISR input), ``fusion`` [n_blocks, 2, B] for the fusion
+    module and ``fusion_isr`` [n_isr_blocks, 2, B] for the ISR fusion
+    module (modes ``fusion_isr`` and ``fusion_all``; None when no step
+    runs them); ``dropout_keep`` [S, B, C] are the classifier's channel
     keep-masks of the image, events, fusion (and isr) streams, S = 4 with
     the ISR input and 3 without."""
     image: Optional[Sequence[torch.Tensor]] = None
     events: Optional[Sequence[torch.Tensor]] = None
     fusion: Optional[torch.Tensor] = None
     dropout_keep: Optional[torch.Tensor] = None
+    fusion_isr: Optional[torch.Tensor] = None
 
     def to(self, device) -> "ForwardDraws":
         """The same draws on ``device``."""
@@ -111,14 +122,17 @@ class FusionEncoderDecoder(nn.Module):
             cfg.fusion_isr, mit_cfg.embed_dims, remat=cfg.remat)
         self.decode_head = DAFormerFusionHead(
             cfg.head, share=cfg.share_decoder, split_cls=cfg.split_cls,
-            events_classes=cfg.events_classes)
+            events_classes=cfg.events_classes,
+            batched_train=cfg.head_batched_train)
 
     def new_draws(self, batch: int, *, generator: torch.Generator,
-                  device: torch.device, with_isr: bool = True
-                  ) -> ForwardDraws:
+                  device: torch.device, with_isr: bool = True,
+                  fusion_isr: bool = False) -> ForwardDraws:
         """Fresh ``ForwardDraws`` for a training forward at ``batch``, drawn
         from ``generator`` on ``device``: for the events+ISR double batch
-        (``with_isr``) or the single-batch forward without the ISR input."""
+        (``with_isr``) or the single-batch forward without the ISR input;
+        with ``fusion_isr`` also the ISR fusion module's uniforms, drawn
+        last."""
         def uniform(*shape):
             return torch.rand(shape, generator=generator, device=device)
 
@@ -132,7 +146,9 @@ class FusionEncoderDecoder(nn.Module):
             fusion=uniform(num_drop_path_blocks(self.fusion_module), 2,
                            batch),
             dropout_keep=uniform(4 if with_isr else 3, batch, n_cls)
-            < 1.0 - rate)
+            < 1.0 - rate,
+            fusion_isr=(uniform(num_drop_path_blocks(self.fusion_isr_module),
+                                2, batch) if fusion_isr else None))
 
     def extract_feat(self, image, events, img_self_res=None,
                      mode: str = "default",
@@ -140,18 +156,25 @@ class FusionEncoderDecoder(nn.Module):
         """NCHW inputs -> {'f_image', 'f_events', 'f_fusion',
         'f_img_self_res'} NCHW pyramids (None where absent). ``draws``
         (training) carries the drop-path uniforms; None is eval. Training
-        is ported for mode 'default', with the events+ISR double batch or
-        with events alone."""
+        is ported for modes 'default' and 'fusion_isr', with the events+ISR
+        double batch or with events alone, and 'fusion_all', with the
+        double batch."""
         double = (events is not None and img_self_res is not None
                   and events.shape == img_self_res.shape)
         if draws is not None and not (
-                mode == "default" and events is not None
-                and (double or img_self_res is None)):
+                events is not None
+                and (mode in ("default", "fusion_isr")
+                     and (double or img_self_res is None)
+                     or mode == "fusion_all" and double)):
             raise NotImplementedError(
                 f"training forward in mode {mode!r} with events "
                 f"{'absent' if events is None else 'present'} and ISR "
                 f"{'absent' if img_self_res is None else 'present'} is not "
                 "ported")
+        if (draws is not None and mode != "default"
+                and draws.fusion_isr is None):
+            raise ValueError(f"a training forward in mode {mode!r} needs "
+                             "ForwardDraws.fusion_isr")
         d = draws if draws is not None else ForwardDraws()
         f_image = (self.backbone_image(image, d.image)
                    if image is not None else None)
@@ -171,10 +194,10 @@ class FusionEncoderDecoder(nn.Module):
             f_fusion = None
         elif mode == "fusion_isr":
             other = f_events if f_isr is None else f_isr
-            f_fusion = self.fusion_isr_module(f_image, other)
+            f_fusion = self.fusion_isr_module(f_image, other, d.fusion_isr)
         elif mode == "fusion_all":
-            f_a = self.fusion_isr_module(f_image, f_isr)
-            f_b = self.fusion_module(f_image, f_events)
+            f_a = self.fusion_isr_module(f_image, f_isr, d.fusion_isr)
+            f_b = self.fusion_module(f_image, f_events, d.fusion)
             f_fusion = [(a + b) / 2 for a, b in zip(f_a, f_b)]
         elif mode == "default":
             f_fusion = (self.fusion_module(f_image, f_events, d.fusion)

@@ -5,6 +5,8 @@
   ones included (the reference's ``F.cross_entropy(reduction='none')``
   followed by ``.mean()``). ``F.cross_entropy(reduction='mean',
   ignore_index=...)`` divides by the valid count instead, so it is not used.
+* ``weighted_cross_entropy_stacked``: the same CE of S stacked streams
+  with one label and weight map, one value per stream.
 * ``pixel_accuracy``: 100 * #(argmax == label) / numel(label), ignored
   pixels in the denominator (they can never match).
 
@@ -27,6 +29,24 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if weight is not None:
         nll = nll * weight.float()
     return nll.mean()
+
+
+def weighted_cross_entropy_stacked(logits: torch.Tensor,
+                                   labels: torch.Tensor,
+                                   weight: torch.Tensor | None = None,
+                                   ignore_index: int = 255) -> torch.Tensor:
+    """``weighted_cross_entropy`` of S streams sharing one label and weight
+    map, in one chain: logits [S, B, H, W, C], labels [B, H, W] -> [S]."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    index = safe.unsqueeze(0).unsqueeze(-1).expand(
+        logits.shape[0], *safe.shape, 1)
+    nll = -logp.gather(-1, index).squeeze(-1)              # [S, B, H, W]
+    nll = torch.where(valid, nll, 0.0)
+    if weight is not None:
+        nll = nll * weight.float()
+    return nll.mean(dim=(1, 2, 3))
 
 
 def pixel_accuracy(logits: torch.Tensor, labels: torch.Tensor,

@@ -53,17 +53,17 @@ from ..data.dark_zurich import DarkZurichDataset
 from ..data.dsec import DSECDataset
 from ..data.synthetic import SyntheticSource, SyntheticTarget
 from ..data.uda import UDAPairDataset
+from ..ops.resize import set_fused_int_upsample
 from ..train.loop import TrainLoop, load_checkpoint
 from ..utils.weights import (load_pretrained_backbone, load_torch_file,
                              strip_prefix)
 
 # the JAX CLI's flags that lead to code the port does not have, by ROADMAP
-# queue A item: 2 the fused resize, 5 fdist's frozen encoder, 7 parallelism
+# queue A item: 5 fdist's frozen encoder, 7 parallelism
 _UNPORTED = {
     **dict.fromkeys(("--multi-host", "--coordinator", "--data-parallel",
                      "--shard-opt-state", "--tensor-parallel"), 7),
     "--imnet": 5,
-    "--fused-resize": 2,
 }
 
 
@@ -114,6 +114,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="uda.pallas_ce: the fused upsample+CE and argmax "
                         "kernels, always on in the port (--no-pallas-ce "
                         "is refused)")
+    p.add_argument("--fused-resize", action="store_true",
+                   help="integer-factor bilinear upsamples as fixed-phase "
+                        "weighted adds (ops/resize.py "
+                        "set_fused_int_upsample), for the whole process")
     p.add_argument("--device", default="cuda")
     add_ablation_flags(p)
     args, extra = p.parse_known_args(argv)
@@ -461,6 +465,8 @@ def init_state(trainer, cfg: C.RunConfig, args):
 def main(argv=None) -> TrainLoop:
     args = parse_args(argv)
     cfg = build_config(args)
+    if args.fused_resize:
+        set_fused_int_upsample(True)
     dataset, val = build_datasets(cfg, args)
     loop = TrainLoop(cfg, dataset=dataset, val_dataset=val,
                      work_dir=args.work_dir, num_workers=args.num_workers,

@@ -5,7 +5,8 @@ fusion train types ``cs2dsec_image+events_together`` (the flagship),
 One ``train_step``:
   1. day events (the cs2dsec types): the frozen CycleGAN on the mean of the
      source temporal difference, repeated to 3 channels (no grad);
-  2. the events-vs-ISR coin;
+  2. the events-vs-ISR coin (False with ``uda.without_events``, True with
+     ``uda.without_isd``, in every train type);
   3. the EMA teacher update BEFORE the pseudo-labels,
      alpha = min(1 - 1/(t+1), uda.alpha), over the parameters only;
      with ``uda.teacher_bf16`` the teacher's bfloat16 copy is refreshed
@@ -13,14 +14,23 @@ One ``train_step``:
   4. the teacher (dropout and drop-path off, BN on batch statistics that
      are not kept) on the night image and a second input, decoding only
      the fusion stream at stride 4: where(coin, events, ISR) for the
-     cs2dsec types, the night ISR for cs2dz; pseudo-labels and the
+     cs2dsec types, the night ISR for cs2dz; with ``uda.fuse_both_ice_and_e``
+     (events_together) the events+ISR double batch in mode ``fusion_all``,
+     with ``uda.isr_no_fusion`` (cs2dsec_image+events) always the events,
+     with ``uda.isr_another_fusion`` the events, or on an ISR coin the ISR
+     in mode ``fusion_isr``; pseudo-labels and the
      confidence-ratio weight (top and bottom rows zeroed as the config
      says) through the fused upsample+argmax kernel;
   5. ClassMix of source into target with color jitter and Gaussian blur
      (and of the events, for the cs2dsec types); the mixed ISR recomputed
      from the mixed image (PIL-exact grayscale, then the batched ISR
      kernel, one random direction per image, or the config's fixed
-     ``shift_type``; with ``uda.shift_3_channel`` three launches, rightdown,
+     ``shift_type``; under ``shift_type='all'`` no kernel: the mean of the
+     four directions' ISRs in plain torch (``ops/isr.py``), because the JAX
+     step takes its Pallas ISR only for one direction per image
+     (cmda_tpu/uda/dacs.py:197) and runs ``image_to_isr(...,
+     shift_direction='all')`` otherwise, so this is its route, not a
+     fall-back; with ``uda.shift_3_channel`` three launches, rightdown,
      one for each of ``uda.isr_params_3``, as the three channels), then
      with ``uda.isr_noise_dacs_type`` channel 0 blurred and noised
      (``add_noise_on_isr``) and repeated; or, with
@@ -30,12 +40,22 @@ One ``train_step``:
   6. the source forward and backward, then the mixed forward and backward,
      the gradients summed by accumulation (the source activations are freed
      before the mixed forward starts), each stream's CE through the fused
-     upsample+CE kernels; both forwards take the same drop-path and
+     upsample+CE kernels (with ``uda.stacked_stream_ce`` and four streams,
+     one plain checkpointed resize+CE over the stack, as the JAX package's
+     is XLA); both forwards take the same drop-path and
      Dropout2d draws, as the JAX step hands both the same rngs. The
      student's inputs: (image, events, ISR), four streams, for
      ``events_together``; (image, where(coin, events, ISR)) for
      ``cs2dsec_image+events`` and (image, ISR) for cs2dz, a single batch
-     through the events backbone and three streams;
+     through the events backbone and three streams. Its mode: ``fusion_all``
+     with ``uda.fuse_both_ice_and_e``; with ``uda.isr_another_fusion`` on an
+     ISR coin ``fusion_isr`` (cs2dsec_image+events then takes the ISR); else
+     ``default``. The JAX step compiles both coin graphs into a
+     ``lax.cond``; the port reads the coin on the host once per step and
+     runs the one graph. ``uda.isr_no_fusion`` (cs2dsec_image+events) weighs
+     the fusion CE by ``loss_weight_fusion * coin`` in both passes.
+     ``uda.source_only`` keeps steps 1-5 and the source pass only: no mixed
+     forward, its gradients and BatchNorm statistics the source's;
   7. ``optim.grad_clip`` (the global norm of the summed gradient), then
      AdamW (head lr x10, no decay on norms; bfloat16 moments with
      ``optim.moment_dtype``), parameters without a gradient given zeros as
@@ -71,6 +91,9 @@ update: the weights of the layers that compute in the model's dtype
 (``Linear``, ``Conv2d``) in that dtype, the rest (norms, classifier) as
 bfloat16-rounded float32, so no layer casts per call.
 
+``model.head_batched_train`` decodes the head's streams as one stacked batch
+in training too (``models/daformer.py``).
+
 Any other train type or option raises ``NotImplementedError`` naming it
 and its ROADMAP item. So does ``uda.pallas_ce=False`` or
 ``uda.use_pallas_isr=False``: in the JAX package they choose XLA's chain
@@ -97,7 +120,7 @@ from ..ops.augment import (IsrNoiseDraws, add_noise_on_isr, class_mix_mask,
                            isr_noise_draws, jitter_factors,
                            maybe_color_jitter_normalized, maybe_gaussian_blur,
                            one_mix, sample_class_half)
-from ..ops.isr import SHIFT_DIRECTIONS, pil_grayscale
+from ..ops.isr import SHIFT_DIRECTIONS, image_change_from_gray, pil_grayscale
 from ..ops.isr_kernel import batched_isr
 from ..ops.normalize import denorm_image
 from ..train.optim import (clip_grad_global_norm_, make_optimizer,
@@ -108,12 +131,8 @@ TOGETHER = "cs2dsec_image+events_together"
 TRAIN_TYPES = (TOGETHER, "cs2dsec_image+events", "cs2dz_image+raw-isr")
 # flag -> (the only value ported, the ROADMAP queue A item that ports the
 # others)
-_PORTED_UDA = {
-    "fuse_both_ice_and_e": (False, 5), "isr_another_fusion": (False, 5),
-    "isr_no_fusion": (False, 5), "isr_edge": (False, 5),
-    "deflare_aug": (False, 5), "source_only": (False, 5),
-    "stacked_stream_ce": (False, 2), "without_events": (False, 5),
-    "without_isd": (False, 5), "imnet_feature_dist_lambda": (0.0, 5)}
+_PORTED_UDA = {"isr_edge": (False, 5), "deflare_aug": (False, 5),
+               "imnet_feature_dist_lambda": (0.0, 5)}
 ISR_NOISE_TYPES = ("", "noise", "blur", "noise+blur")
 
 
@@ -187,6 +206,13 @@ class DACSTrainer:
         self.has_events = train_type.startswith("cs2dsec")
         # the events+ISR double batch and the four-stream loss
         self.together = train_type == TOGETHER
+        u = cfg.uda
+        # the step's graph depends on the coin: read it on the host
+        self.coin_graph = (u.isr_another_fusion and self.has_events
+                           and not (self.together and u.fuse_both_ice_and_e))
+        # a graph of the step runs the ISR fusion module
+        self.isr_fusion = self.coin_graph or (self.together
+                                              and u.fuse_both_ice_and_e)
         # set to a list to collect (name, CUDA event, peak bytes since the
         # last mark, live bytes) at the step's section boundaries: a
         # device-time and memory breakdown
@@ -213,14 +239,15 @@ class DACSTrainer:
             raise ValueError(f"uda.isr_noise_dacs_type="
                              f"{cfg.uda.isr_noise_dacs_type!r} is not one of "
                              f"{ISR_NOISE_TYPES}")
-        if cfg.uda.shift_type == "all":
-            raise NotImplementedError("uda.shift_type='all' is not ported "
-                                      "(ROADMAP queue A item 2)")
         if cfg.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype={cfg.dtype!r}")
-        if cfg.model.head_batched_train:
-            raise NotImplementedError("model.head_batched_train is not "
-                                      "ported (ROADMAP queue A item 2)")
+        if (cfg.model.train_type.startswith("cs2dsec")
+                and (cfg.uda.isr_another_fusion
+                     or cfg.uda.fuse_both_ice_and_e
+                     and cfg.model.train_type == TOGETHER)
+                and not cfg.model.fusion_isr):
+            raise ValueError("uda.isr_another_fusion and "
+                             "uda.fuse_both_ice_and_e need model.fusion_isr")
         if cfg.uda.img_self_res_reg not in {"no", "only_isr", "mixed",
                                             "average"}:
             raise ValueError(f"uda.img_self_res_reg="
@@ -296,7 +323,8 @@ class DACSTrainer:
         isr_dirs = torch.randint(0, 4, (batch,), generator=gen, device=dev,
                                  dtype=torch.int32)
         fwd = state.model.new_draws(batch, generator=gen, device=dev,
-                                    with_isr=self.together)
+                                    with_isr=self.together,
+                                    fusion_isr=self.isr_fusion)
         isr_noise = None
         if cfg.uda.isr_noise_dacs_type and cfg.uda.mixed_image_to_mixed_isr:
             h, w = hw if hw is not None else cfg.data.crop_size[::-1]
@@ -369,11 +397,21 @@ class DACSTrainer:
     def _mixed_isr(self, mixed_img, dir_idx):
         """The mixed image's ISR with ``uda.isr_params``, in the config's
         fixed ``shift_type``, else in each image's of ``dir_idx``;
-        [B, H, W, 3]."""
+        [B, H, W, 3]. ``shift_type='all'`` is the mean of the four single-
+        axis ICs of each image, plain torch and no kernel launch, as the
+        JAX step runs ``image_to_isr(..., shift_direction='all')`` there and
+        its Pallas ISR only for one direction (cmda_tpu/uda/dacs.py:197)."""
         u = self.cfg.uda
-        direction = None if u.shift_type == "random" else u.shift_type
-        isr = self._isr_of_gray(self._gray(mixed_img), dir_idx, u.isr_params,
-                                direction)
+        p = u.isr_params
+        gray = self._gray(mixed_img)
+        if u.shift_type == "all":
+            isr = torch.stack([image_change_from_gray(
+                g, val_range=tuple(p.val_range), threshold=p.threshold,
+                clip_range=p.clip_range, shift_pixel=p.shift_pixel,
+                shift_direction="all") for g in gray])
+        else:
+            direction = None if u.shift_type == "random" else u.shift_type
+            isr = self._isr_of_gray(gray, dir_idx, p, direction)
         return isr[..., None].expand(-1, -1, -1, 3)
 
     def _mixed_isr_3ch(self, mixed_img):
@@ -413,19 +451,26 @@ class DACSTrainer:
         apply_blur = (draws.blur_gate > 0.5 if u.blur
                       else torch.zeros((), dtype=torch.bool,
                                        device=self.device))
-        use_events = draws.coin > self._choice_thres(state.step)
+        if u.without_events:
+            use_events = torch.zeros((), dtype=torch.bool, device=self.device)
+        elif u.without_isd:
+            use_events = torch.ones((), dtype=torch.bool, device=self.device)
+        else:
+            use_events = draws.coin > self._choice_thres(state.step)
+        # the one host read of the coin, where it picks the step's graph
+        events_graph = bool(use_events) if self.coin_graph else None
 
         self._ema_update(ema_model, state.model, state.step)
         if teacher is not None:
             _refresh_teacher(teacher, ema_model)
         self._mark("ema")
 
-        second = (torch.where(use_events, night_events, night_isr)
-                  if self.has_events else night_isr)
         teacher_model = ema_model if teacher is None else teacher
         teacher_out = teacher_model.forward_logits(
-            night_image, second, None, "default", resize_to_input=False,
-            streams=("fusion",), train=False, bn_train=True, bn_update=False)
+            *self._teacher_inputs(night_image, night_events, night_isr,
+                                  use_events, events_graph),
+            resize_to_input=False, streams=("fusion",), train=False,
+            bn_train=True, bn_update=False)
         pseudo_label, pseudo_weight = pseudo_label_and_weight_coarse(
             teacher_out["fusion_output"], night_image.shape[1:3],
             threshold=u.pseudo_threshold, ignore_top=u.pseudo_weight_ignore_top,
@@ -473,25 +518,50 @@ class DACSTrainer:
                     day_isr=src["img_self_res"], day_events=day_events,
                     night_image=night_image, night_isr=night_isr,
                     night_events=night_events, use_events=use_events,
+                    events_graph=events_graph,
                     pseudo_label=pseudo_label, pseudo_weight=pseudo_weight,
                     masks=masks,
                     mixed_img=mixed_img, mixed_lbl=mixed_lbl,
                     mixed_weight=mixed_weight, mixed_events=mixed_events,
                     mixed_isr=mixed_isr)
 
+    def _teacher_inputs(self, image, events, isr, use_events, events_graph):
+        """(image, second input, ISR, mode) of the teacher's forward
+        (cmda_tpu/uda/dacs.py:338-366)."""
+        u = self.cfg.uda
+        if not self.has_events:
+            return image, isr, None, "default"
+        if self.together and u.fuse_both_ice_and_e:
+            return image, events, isr, "fusion_all"
+        if not self.together and u.isr_no_fusion:
+            return image, events, None, "default"
+        if self.coin_graph:
+            return ((image, events, None, "default") if events_graph
+                    else (image, isr, None, "fusion_isr"))
+        return image, torch.where(use_events, events, isr), None, "default"
+
     def _student_inputs(self, P: dict):
-        """(image, events, ISR) of the source and of the mixed forward."""
+        """(image, events, ISR) of the source and of the mixed forward, and
+        the mode of both (cmda_tpu/uda/dacs.py:560-601)."""
+        u = self.cfg.uda
+        isr_graph = P["events_graph"] is False
         if self.together:
+            mode = ("fusion_all" if u.fuse_both_ice_and_e
+                    else "fusion_isr" if isr_graph else "default")
             return ((P["day_image"], P["day_events"], P["day_isr"]),
-                    (P["mixed_img"], P["mixed_events"], P["mixed_isr"]))
+                    (P["mixed_img"], P["mixed_events"], P["mixed_isr"]), mode)
+        if isr_graph:   # cs2dsec_image+events, the ISR fusion module
+            return ((P["day_image"], P["day_isr"], None),
+                    (P["mixed_img"], P["mixed_isr"], None), "fusion_isr")
         if self.has_events:   # cs2dsec_image+events: the coin picks one
             pick = P["use_events"]
             return ((P["day_image"], torch.where(
                         pick, P["day_events"], P["day_isr"]), None),
                     (P["mixed_img"], torch.where(
-                        pick, P["mixed_events"], P["mixed_isr"]), None))
+                        pick, P["mixed_events"], P["mixed_isr"]), None),
+                    "default")
         return ((P["day_image"], P["day_isr"], None),
-                (P["mixed_img"], P["mixed_isr"], None))
+                (P["mixed_img"], P["mixed_isr"], None), "default")
 
     @staticmethod
     def _batch_hw(batch: dict):
@@ -536,25 +606,34 @@ class DACSTrainer:
         if draws is None:
             draws = self.new_draws(state, *self._batch_hw(batch))
         P = self._prepare(state, batch, draws, state.ema_model, state.teacher)
-        src_in, mix_in = self._student_inputs(P)
+        src_in, mix_in, mode = self._student_inputs(P)
+        u = self.cfg.uda
         weights = self._loss_weights()
+        if u.isr_no_fusion and self.has_events and not self.together:
+            # no fusion loss on ISR coins: the same graph, a gated weight
+            weights["w_fusion"] = weights["w_fusion"] * P["use_events"].float()
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)
 
-        logits = model.forward_train(*src_in, "default", draws.fwd)[0]
-        loss_src, logs_src = multi_stream_loss(logits, P["day_label"], None,
-                                               **weights)
+        logits = model.forward_train(*src_in, mode, draws.fwd)[0]
+        loss_src, logs_src = multi_stream_loss(
+            logits, P["day_label"], None, stacked=u.stacked_stream_ce,
+            **weights)
         self._mark("src_fwd")
         loss_src.backward()
         del logits
         self._mark("src_bwd")
-        logits = model.forward_train(*mix_in, "default", draws.fwd)[0]
-        loss_mix, logs_mix = multi_stream_loss(logits, P["mixed_lbl"],
-                                               P["mixed_weight"], **weights)
-        self._mark("mix_fwd")
-        loss_mix.backward()
-        del logits
-        self._mark("mix_bwd")
+        loss, logs_mix = loss_src.detach(), {}
+        if not u.source_only:
+            logits = model.forward_train(*mix_in, mode, draws.fwd)[0]
+            loss_mix, logs_mix = multi_stream_loss(
+                logits, P["mixed_lbl"], P["mixed_weight"],
+                stacked=u.stacked_stream_ce, **weights)
+            self._mark("mix_fwd")
+            loss_mix.backward()
+            del logits
+            self._mark("mix_bwd")
+            loss = loss + loss_mix.detach()
 
         zero_missing_grads(model.parameters())
         if self.cfg.optim.grad_clip is not None:
@@ -566,7 +645,7 @@ class DACSTrainer:
         self._mark("optimizer")
         logs = {**{f"src/{k}": v for k, v in logs_src.items()},
                 **{f"mix/{k}": v for k, v in logs_mix.items()},
-                "loss": (loss_src + loss_mix).detach(),
+                "loss": loss,
                 "pseudo_weight": P["pseudo_weight"].mean(),
                 "use_events": P["use_events"].float()}
         return state, logs

@@ -7,6 +7,10 @@
   upsample+CE kernels for integer factors (``fused_resize_ce``) and the
   plain resize+CE otherwise. ``acc_seg`` comes from the fusion stream (the
   image stream without fusion), through the fused upsample+argmax kernel.
+  With ``stacked`` (``uda.stacked_stream_ce``) and all four streams, the
+  four CEs are one checkpointed resize + CE over the [4, B, h, w, C] stack
+  (``stacked_stream_ce``), plain torch as it is plain XLA in the JAX
+  package: that step launches no CE kernel, the JAX step no Pallas CE.
 * ``pseudo_label_and_weight`` / ``pseudo_label_and_weight_coarse``: the
   teacher's argmax labels and the scalar confidence-ratio weight (share of
   pixels whose max softmax >= threshold), with optional top/bottom rows
@@ -17,10 +21,12 @@ from __future__ import annotations
 
 import torch
 
+from ..models.common import maybe_checkpoint
 from ..ops.fused_ce import fused_resize_ce, resize_ce
 from ..ops.fused_resize import (fused_resize_argmax, is_integer_factor,
                                 resize_argmax)
-from ..ops.losses import accuracy_of_labels
+from ..ops.losses import accuracy_of_labels, weighted_cross_entropy_stacked
+from ..ops.resize import resize_bilinear
 
 
 def _stream_accuracy(x: torch.Tensor, label: torch.Tensor,
@@ -48,15 +54,49 @@ def stream_ce(x: torch.Tensor, label: torch.Tensor,
     return resize_ce(x, label, weight, ignore_index)
 
 
+def stacked_stream_ce(xs: torch.Tensor, label: torch.Tensor,
+                      weight: torch.Tensor | None,
+                      ignore_index: int = 255) -> torch.Tensor:
+    """The CEs of the stacked stride-4 streams ``xs`` [S, B, h, w, C]
+    upsampled to the label size, [S]: one resize and one CE chain,
+    recomputed in the backward pass (``torch.utils.checkpoint``, as the JAX
+    package's ``jax.checkpoint``) so the upsampled logits are not kept."""
+    size = tuple(label.shape[1:3])
+
+    def fn(xs):
+        big = resize_bilinear(xs.reshape((-1,) + tuple(xs.shape[2:])), size)
+        return weighted_cross_entropy_stacked(
+            big.reshape(tuple(xs.shape[:2]) + tuple(big.shape[1:])), label,
+            weight, ignore_index)
+    return maybe_checkpoint(fn, xs, remat=True)
+
+
 def multi_stream_loss(logits: dict, label: torch.Tensor,
                       seg_weight: torch.Tensor | None, *, w_image: float,
-                      w_events: float, w_fusion: float, w_isr: float,
-                      ignore_index: int = 255):
+                      w_events: float, w_fusion, w_isr: float,
+                      ignore_index: int = 255, stacked: bool = False):
     """logits: dict of stride-4 NHWC streams (None where absent); label
-    [B, H, W] int32; seg_weight [B, H, W] float32 or None. Returns
-    (loss, logs), the logs as 0-dim tensors."""
+    [B, H, W] int32; seg_weight [B, H, W] float32 or None; ``w_fusion`` a
+    float or a 0-dim tensor (``isr_no_fusion``'s gated weight). Returns
+    (loss, logs), the logs as 0-dim tensors. ``stacked``: the four streams'
+    CEs through ``stacked_stream_ce`` when all four are there."""
     def ce(x):
         return stream_ce(x, label, seg_weight, ignore_index)
+
+    keys = ("image_output", "fusion_output", "events_output",
+            "img_self_res_output")
+    if stacked and all(logits.get(k) is not None for k in keys):
+        l_image, l_fusion, l_events, l_isr = stacked_stream_ce(
+            torch.stack([logits[k] for k in keys]), label, seg_weight,
+            ignore_index)
+        loss = (l_image * w_image + l_fusion * w_fusion + l_isr * w_isr
+                + l_events * (w_events / 2.0))
+        logs = {"loss_image": l_image, "loss_fusion": l_fusion,
+                "loss_events": l_events, "loss_isr": l_isr,
+                "acc_seg": _stream_accuracy(logits["fusion_output"], label,
+                                            ignore_index),
+                "loss_seg": loss}
+        return loss, {k: v.detach() for k, v in logs.items()}
 
     l_image = ce(logits["image_output"])
     loss = l_image * w_image

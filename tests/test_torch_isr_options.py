@@ -400,22 +400,19 @@ def test_pallas_ce_flag_sets_the_config():
 
 def _build(argv):
     """What ``tools.train.main`` builds before it trains, on the CPU: the
-    config, the datasets, the trainer and its state."""
+    config, the datasets, the trainer and its state; returns (args,
+    config)."""
     args = ttrain.parse_args(argv + ["--device", "cpu"])
     cfg = ttrain.build_config(args)
     ttrain.build_datasets(cfg, args)
     DACSTrainer(cfg, device="cpu").init_state()
+    return args, cfg
 
 
 @pytest.mark.parametrize("argv,match", [
     (["--isr_edge", "1"], "uda.isr_edge.*item 5"),
     (["--feature_dist", "0.5"], "imnet_feature_dist_lambda.*item 5"),
     (["--deflare_aug"], "deflare_aug.*item 5"),
-    (["--without_events"], "without_events.*item 5"),
-    (["--without_isd"], "without_isd.*item 5"),
-    (["--isr_no_fusion"], "isr_no_fusion.*item 5"),
-    (["--fuse_both_ice_and_e"], "fuse_both_ice_and_e.*item 5"),
-    (["--isd_shift_type", "all"], "shift_type='all'.*item 2"),
     (["--fusion", "af"], "'average'.*item 6"),
     (["--fusion", "caf"], "'convert_avg'.*item 6"),
     (["--fusion_isr", "af"], "'average'.*item 6"),
@@ -430,12 +427,29 @@ def test_unported_flags_raise_from_their_owner(argv, match):
         _build(["--config", "tiny", "--synthetic"] + argv)
 
 
+@pytest.mark.parametrize("argv,reached", [
+    (["--without_events"], lambda a, c: c.uda.without_events),
+    (["--without_isd"], lambda a, c: c.uda.without_isd),
+    (["--isr_no_fusion"], lambda a, c: c.uda.isr_no_fusion),
+    (["--fuse_both_ice_and_e"], lambda a, c: c.uda.fuse_both_ice_and_e),
+    (["--isd_shift_type", "all"],
+     lambda a, c: c.uda.shift_type == c.data.shift_type == "all"),
+    (["--fused-resize"], lambda a, c: a.fused_resize),
+], ids=lambda v: "_".join(v) if isinstance(v, list) else "")
+def test_uda_option_flags_build(argv, reached):
+    """The flags whose options train since the UDA options slice build the
+    config, the datasets, the trainer and its state, and reach the config
+    (``--fused-resize`` the parsed arguments: ``main`` sets the process's
+    phase upsample from it, held in tests/test_torch_uda_options.py)."""
+    args, cfg = _build(["--config", "tiny", "--synthetic"] + argv)
+    assert reached(args, cfg)
+
+
 def test_dz_auto_threshold_and_parse_time_refusals():
     with pytest.raises(NotImplementedError, match="unimplemented in the "
                        "reference"):
         _build(["--config", "cs2dz", "--dz_auto_threshold"])
-    for flag, item in (("--fused-resize", 2), ("--multi-host", 7),
-                       ("--imnet", 5)):
+    for flag, item in (("--multi-host", 7), ("--imnet", 5)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             ttrain.parse_args(["--synthetic", flag, "x"])
     with pytest.raises(ValueError, match="isr_noise_dacs_type"):

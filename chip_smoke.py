@@ -5,6 +5,10 @@
     python3 chip_smoke.py --device-time ROOT
         # only the device and per-call times of every port kernel of the
         # checkout at ROOT, at the points the main paths launch them
+    python3 chip_smoke.py --phases isr,ce,train_types
+        # a short check of some phases alone (isr, ce: the kernel times and
+        # phase_isr, phase_ce; train_types: the cs2dz step of phase_train,
+        # then phase_train_types); prints no result line
 
 Phases, any failure exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -132,7 +136,20 @@ Phases, any failure exits non-zero:
      timed beside phase 6's flagship step; and ``tools.train.main
      --config cs2dsec --synthetic --fused-resize --set
      uda.isr_another_fusion=true`` for 2 iterations;
- 14. one JSON line of per-kernel results, the nvidia-smi line, and last
+ 14. the DACS trainer's DarkZurich ablations (``phase_train_types``): the
+     cs2dz MiT-b5 step at 512x512, batch 2, float32 with the JAX grid's
+     model settings (no fusion module; split classifiers, 2 events classes
+     for no-fusion): ``cs2dz_image+raw-isr_split`` with ``deflare_aug``,
+     ``_no-fusion`` with edge labels (the CE kernel at C = 2), ``_no-fusion``
+     with the [0.1, 0.9] edge class weight and the ImageNet feature
+     distance (a frozen b5 ``EncoderDecoder`` from a seeded ``.pth``), and
+     ``cs2dz_image+d2n-isr``, each against its plain-version twin with its
+     launches checked, on DarkZurich frames written on the spot (deflared
+     and day pairs), timed beside phase_train's cs2dz step; then the
+     no-fusion type through ``tools.train.main --imnet`` for 2 iterations
+     and one evaluation; the CE kernels' C = 2 point is held and timed in
+     3 and 5;
+ 15. one JSON line of per-kernel results, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -484,7 +501,7 @@ def port_kernel_times(earlier=False):
                     g, xp, lp, wp, lse_p), names("fused_resize_ce_dx"),
                 (g, xp, lp, wp, lse_p))
         for dtype in (torch.float32, torch.bfloat16):
-            if point == "dz_step":   # no dweight on a step's path
+            if point in CE_NO_DWEIGHT:
                 break
             xd = xp.to(dtype)
             _, lse_d = fused_resize_ce_forward(xd, lp, wp)
@@ -511,6 +528,16 @@ def port_kernel_times(earlier=False):
             lambda gray3=gray3, dirs3=dirs3, kw3=kw3: batched_isr(
                 gray3, dirs3, **kw3), names("batched_isr"),
             (gray3, dirs3, kw3))
+    # the no-fusion edge stream's C = 2 point, drawn after all of the above
+    xe, le, we = _ce_case(gen, *CE_POINTS["edge_c2"], torch.float32, dev,
+                          ignored=0.0)
+    _, lse_e = fused_resize_ce_forward(xe, le, we)
+    calls["ce_fwd_edge_c2"] = (
+        lambda: fused_resize_ce_forward(xe, le, we), names("fused_resize_ce"),
+        (xe, le, we))
+    calls["ce_dx_edge_c2"] = (
+        lambda: fused_resize_ce_dx(g, xe, le, we, lse_e),
+        names("fused_resize_ce_dx"), (g, xe, le, we, lse_e))
     out = {}
     for k, (fn, nm, args) in calls.items():
         dev_ms, traces = device_ms(fn, nm)
@@ -661,12 +688,16 @@ def phase_isr(gen, times):
               for preset in presets for shift in (1, 2, 3)]
     cases += [("h1", (2, 1, 640), preset, 1) for preset in presets]
     # the cs2dz step's: every image rightdown with the preset's
-    # uda.isr_params, as _dz_isr_case draws it
+    # uda.isr_params, as _dz_isr_case draws it; and on a dark night frame,
+    # most of it in the dead zone
     cases.append(("dz_step", ISR_DZ_STEP, "cs2dz_uda", None))
+    cases.append(("dark", ISR_DZ_STEP, "cs2dz_uda", None))
     worst = 0.0
     for name, (b, h, w), preset, shift in cases:
-        if name == "dz_step":
+        if name in ("dz_step", "dark"):
             gray, dirs, kw = _dz_isr_case(gen, dev)
+            if name == "dark":
+                gray = _dark_gray(gen, b, h, w, dev)
             shift = kw["shift_pixel"]
         else:
             gray = _smooth_gray(gen, b, h, w, dev)
@@ -680,10 +711,17 @@ def phase_isr(gen, times):
         diff = (out - ref).abs()
         err = float(diff.max())
         flagged = (diff > ISR_TOL).nonzero().tolist()
+        # the dead zone exactly 0 in both, as the reference divides
+        zeros = int((ref == 0).sum())
+        zero_mismatch = int(((out == 0) != (ref == 0)).sum())
         print(f"isr {name} [{b},{h},{w}] {preset} shift {shift} dirs "
               f"{dirs.tolist()[:4]}: max|d| {err:.3g}, pixels over "
-              f"{ISR_TOL}: {len(flagged)}; bitwise equal on a second run",
-              flush=True)
+              f"{ISR_TOL}: {len(flagged)}; exactly 0 in the plain version "
+              f"{zeros}, in one of the two only {zero_mismatch}; bitwise "
+              "equal on a second run", flush=True)
+        if zero_mismatch:
+            fail(f"isr {name} {preset} shift {shift}: {zero_mismatch} pixels "
+                 "exactly 0 in one of the kernel and its plain version only")
         for bi, y, x in flagged[:10]:   # a dead-zone flip shows here
             print(f"  isr {name} pixel (b={bi}, y={y}, x={x}): kernel "
                   f"{float(out[bi, y, x]):.6f} plain {float(ref[bi, y, x]):.6f}"
@@ -761,7 +799,14 @@ CE_FLAGSHIP = ((2, 128, 128, 19), (512, 512))
 # the classifier runs in float32)
 CE_POINTS = {"flagship": CE_FLAGSHIP,
              "step_b8": ((8, 128, 128, 19), (512, 512)),
-             "dz_step": CE_FLAGSHIP}
+             "dz_step": CE_FLAGSHIP,
+             "edge_c2": ((2, 128, 128, 2), (512, 512))}
+# the points whose path launches no dweight (every step's: the pixel
+# weights take no gradient; phase_ce holds it at the others)
+CE_NO_DWEIGHT = ("dz_step", "edge_c2")
+# edge_c2: the cs2dz no-fusion step's edge stream (uda.isr_edge, no class
+# weight): 2 classes, the generic-C loop of the kernels; its labels are 0 or
+# 1, none ignored
 # the cs2dz step's mixed loss: the pixel weight is 1 on the pasted source
 # classes and the pseudo weight elsewhere, which is its confidence ratio
 # with rows 0-14 and the last 120 zeroed (uda.pseudo_weight_ignore_top /
@@ -780,6 +825,17 @@ def _dz_ce_case(gen, dev):
     pseudo[:, :DZ_IGNORE_TOP] = 0.0
     pseudo[:, -DZ_IGNORE_BOTTOM:] = 0.0
     return x, lbl, torch.where(pasted, torch.ones_like(pseudo), pseudo)
+
+
+def _dark_gray(gen, b, h, w, dev):
+    """A dark night frame's gray levels: 32x32 blocks of levels 5-40 with
+    noise of 0-3 levels, so most pixels fall in the ISR's dead zone."""
+    import torch
+    blocks = torch.randint(5, 41, (b, h // 32 + 1, w // 32 + 1),
+                           generator=gen, device=dev)
+    base = blocks.repeat_interleave(32, 1).repeat_interleave(32, 2)
+    noise = torch.randint(0, 4, (b, h, w), generator=gen, device=dev)
+    return (base[:, :h, :w] + noise).float()
 
 
 def _dz_isr_case(gen, dev):
@@ -856,6 +912,8 @@ def phase_ce(gen, times):
         # memory for the dx)
         "c150": ((2, 16, 24, 150), (64, 96), f32, True, 0.05),
         "c150_bf16": ((2, 16, 24, 150), (64, 96), bf16, True, 0.05),
+        # the no-fusion edge stream: 2 classes, no label ignored
+        "edge_c2": (*CE_POINTS["edge_c2"], f32, True, 0.0),
     }
     worst = {"loss": 0.0, "dx": 0.0, "dweight": 0.0}
     for name, (shape, size, dtype, weighted, ignored) in cases.items():
@@ -951,7 +1009,7 @@ def phase_ce(gen, times):
                     device_ms_cold_l2=t["device_ms_cold_l2"],
                     traces_cold_l2=t["traces_cold_l2"])
         for dtype in (f32, bf16):
-            if point == "dz_step":   # no dweight on a step's path
+            if point in CE_NO_DWEIGHT:
                 break
             t = times[f"ce_dweight_{point}_{_dtype_tag(dtype)}"]
             xd = t["args"][1]
@@ -1149,14 +1207,26 @@ def step_launches(trainer):
     ISR either); with ``uda.source_only`` only the source pass's CE and
     accuracy; with ``uda.stacked_stream_ce`` and four streams no CE kernel
     (one plain checkpointed resize+CE over the stack, XLA's in the JAX
-    step)."""
+    step); for the DarkZurich ablations (split, no-fusion, d2n) two CEs a
+    pass, one when the edge stream is class-weighted."""
     u = trainer.cfg.uda
     isr = (0 if not u.mixed_image_to_mixed_isr
            else len(u.isr_params_3) if u.shift_3_channel
            else 0 if u.shift_type == "all" else 1)
+    passes = 1 if u.source_only else 2
+    if trainer.two_stream:
+        # the DarkZurich ablations: the image and events streams' CEs, the
+        # class-weighted edge stream (isr_edge_class_weight) a plain one;
+        # the teacher's pseudo-labels (two for the split type, none through
+        # the kernel for d2n); no ISR kernel for d2n (a ClassMix of ISRs)
+        ce = (1 if trainer.edge_cw is not None else 2) * passes
+        teacher = 2 if trainer.split else 0 if trainer.d2n else 1
+        return {"fused_resize_ce": ce, "fused_resize_ce_dx": ce,
+                "fused_resize_ce_dweight": 0,
+                "fused_resize_argmax": teacher + passes,
+                "batched_isr": 0 if trainer.d2n else isr}
     base = (TRAIN_LAUNCHES_PER_STEP if trainer.together
             else TRAIN_LAUNCHES_PER_STEP_3)
-    passes = 1 if u.source_only else 2
     ce = (0 if trainer.together and u.stacked_stream_ce
           else base["fused_resize_ce"] // 2 * passes)
     return {**base, "fused_resize_ce": ce, "fused_resize_ce_dx": ce,
@@ -1193,6 +1263,7 @@ TRAIN_TIMED_STEPS = 3
 # synthetic run's steady iteration ("loop_cs2dz", ...), for the real runs
 STEP_MS_MEDIAN = {}
 STEP_PROFILED = {}     # tag: (profiled step's host ms, its device-busy ms)
+STEP_SECTIONS = {}     # tag: the step's CUDA-event sections (ms)
 LOOP_MS_STEADY = {}
 
 
@@ -1642,6 +1713,7 @@ def phase_train(dtype="float32", batch=None, preset="cs2dsec", options=False):
     print(f"{tag} timings " + json.dumps(timings), flush=True)
     STEP_MS_MEDIAN[tag] = statistics.median(step_ms)
     STEP_PROFILED[tag] = (prof_ms, busy_ms)
+    STEP_SECTIONS[tag] = breakdown
     return totals
 
 
@@ -2769,9 +2841,11 @@ def phase_real_corpus(corpus):
 # source options and the 3-channel, noised mixed ISR, run 2 the
 # high-resolution source ISR (and the sky splice, which needs a one-channel
 # ISR) with the ISRs ClassMix-ed and jittered; lens-flare PNGs at the size
-# of Flare7K's scattering flares and gray sky-noise textures, written here
-ISR_RUN_ITERS = (3, 2)
-ISR_ALONE_STEPS = 3
+# of Flare7K's scattering flares and gray sky-noise textures, written here;
+# run 1 took 3 iterations until PR 12 (cut to keep the script inside its
+# time with phase_train_types)
+ISR_RUN_ITERS = (2, 2)
+ISR_ALONE_STEPS = 1   # 3 until PR 12
 ISR_FLARES, ISR_FLARE_SIZE = 4, (1440, 1440)
 ISR_SKY_NOISE, ISR_SKY_NOISE_SIZE = 2, (1024, 512)
 # C2: the cs2dz b5 step with the pseudo threshold at 0 (as
@@ -2863,7 +2937,7 @@ def _run_counted(argv, iters):
 
 
 def _twin_step(cfg, batch, tag, timed_steps=0, state=None, coin=None,
-               measure=False):
+               measure=False, profile=True):
     """One MiT-b5 step of ``cfg`` on ``batch`` through the kernels
     (launches counted and checked), and the same step from copies of the
     state with the same draws through their plain versions on the card,
@@ -2879,12 +2953,19 @@ def _twin_step(cfg, batch, tag, timed_steps=0, state=None, coin=None,
     3.9e-5 of the largest, the CE and argmax together by 2.1e-7, and the
     largest differences sit in the events encoder's first patch
     embedding (its projection's bias, whose moment is the model's
-    largest, and the LayerNorm after it). That this LayerNorm amplifies
-    the ISR's rounding on flat regions is a hypothesis, not measured. The
-    teacher's pseudo weights within ARGMAX_TOL in all three. Then
+    largest, and the LayerNorm after it): a 7x7 patch of the ISR's dead
+    zone is a token of exact zeros, which that LayerNorm and the next
+    scale up by ~1000 each (eps 1e-6), so the ISR's rounding there moves
+    the whole step (measured: the kernel's dead zone at +-6e-8 against
+    the plain version's 0 moved the split type's moments by 92% of the
+    largest on dark DarkZurich frames, before the kernel's normalisation
+    divided as the reference does). The teacher's pseudo weights within
+    ARGMAX_TOL in all three (each
+    pseudo-label call of a step against the same call of the others; d2n's
+    pseudo weight, plain torch in all three, by its logged mean). Then
     ``timed_steps`` more kernel steps on ``batch`` alone, with no loader
-    running, and with ``measure`` one step's CUDA-event sections and one
-    profiled step. The steps start from ``state`` (stepped in place), or
+    running, with ``measure`` the last of them with its CUDA-event sections
+    and, with ``profile``, one profiled step. The steps start from ``state`` (stepped in place), or
     from ``init_state(seed=0)``; ``coin`` forces every step's events-vs-ISR
     coin. Returns (logs, the kernel step's pseudo weight [B, H, W],
     launches, {check: largest error}, {"step_ms": the timed steps' ms, the
@@ -2941,31 +3022,48 @@ def _twin_step(cfg, batch, tag, timed_steps=0, state=None, coin=None,
                 fail(f"{tag}: the plain-version step ({name}) launched "
                      f"{moved}")
             plain[name] = {k: float(v) for k, v in lg.items()}
+    # the ISR first: the all-plain twin's moments follow from it
+    errors["isr"] = 0.0
+    for gray, dirs, kw in grays:
+        got, ref = (real_isr(gray, dirs, **kw),
+                    batched_isr_plain(gray, dirs, **kw))
+        diff = (got - ref).abs()
+        errors["isr"] = max(errors["isr"], float(diff.max()))
+        print(f"{tag}: the ISR kernel on the step's grays vs its plain "
+              f"version: max|d| {float(diff.max()):.3g}, pixels over 0 "
+              f"{int((diff > 0).sum())}, zero in exactly one "
+              f"{int(((got == 0) != (ref == 0)).sum())}, zero in both "
+              f"{int(((got == 0) & (ref == 0)).sum())} of {diff.numel()}",
+              flush=True)
+        if not errors["isr"] <= ISR_TOL:
+            fail(f"{tag}: the ISR kernel on the step's grays is "
+                 f"{errors['isr']} from its plain version (shift "
+                 f"{kw['shift_pixel']}), over {ISR_TOL}; "
+                 f"{int((diff > ISR_TOL).sum())} pixels over")
     for name, rtol in (("ce_argmax", TRAIN_KERNEL_MOMENT_RTOL),
                        ("all", TRAIN_MOMENT_RTOL)):
         what = f"{tag}, kernels vs plain ({name}) on cuda"
         errors[f"loss_{name}"] = _check_logs(logs, plain[name], what)
         errors[f"moments_{name}"] = _check_moments(state, twins[name], rtol,
                                                    what)
-    errors["isr"] = 0.0
-    for gray, dirs, kw in grays:
-        diff = (real_isr(gray, dirs, **kw)
-                - batched_isr_plain(gray, dirs, **kw)).abs()
-        errors["isr"] = max(errors["isr"], float(diff.max()))
-        if not errors["isr"] <= ISR_TOL:
-            fail(f"{tag}: the ISR kernel on the step's grays is "
-                 f"{errors['isr']} from its plain version (shift "
-                 f"{kw['shift_pixel']}), over {ISR_TOL}; "
-                 f"{int((diff > ISR_TOL).sum())} pixels over")
-    errors["pseudo_weight"] = max(float((weights[0] - x).abs().max())
-                                  for x in weights[1:])
+    if weights:   # the same pseudo-label call of each of the three steps
+        n = len(weights) // 3
+        errors["pseudo_weight"] = max(
+            float((weights[i] - weights[i + n * j]).abs().max())
+            for i in range(n) for j in (1, 2))
+    else:
+        errors["pseudo_weight"] = max(abs(logs["pseudo_weight"]
+                                          - p["pseudo_weight"])
+                                      for p in plain.values())
     if not errors["pseudo_weight"] <= ARGMAX_TOL:
         fail(f"{tag}: the pseudo weights of the kernel and the plain steps "
              f"differ by {errors['pseudo_weight']}")
     del twins
     torch.cuda.reset_peak_memory_stats()
     timing = {"step_ms": []}
-    for _ in range(timed_steps):
+    # with ``measure`` the last timed step carries the section marks
+    for _ in range(timed_steps - 1 if measure and timed_steps else
+                   timed_steps):
         d = new_draws()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2974,11 +3072,19 @@ def _twin_step(cfg, batch, tag, timed_steps=0, state=None, coin=None,
         timing["step_ms"].append((time.perf_counter() - t0) * 1e3)
     timing["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     if measure:
+        d = new_draws()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         (timing["sections"], timing["memory"],
-         timing["start_gib"]) = _step_sections(trainer, state, batch,
-                                               new_draws())
-        timing["profiled"] = _device_busy(trainer, state, batch)
-    return logs, weights[0], launches, errors, timing
+         timing["start_gib"]) = _step_sections(trainer, state, batch, d)
+        if timed_steps:
+            timing["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        timing["peak_gib"] = max([timing["peak_gib"]] + [
+            top for top, _ in timing["memory"].values()])
+        if profile:
+            timing["profiled"] = _device_busy(trainer, state, batch)
+    return (logs, weights[0] if weights else None, launches, errors,
+            timing)
 
 
 def _profiled_summary(iters, profiled):
@@ -3278,18 +3384,11 @@ UDA_OPTION_STEPS = (
 # resize), timed beside phase_train's flagship f32 step
 UDA_LEVERS = {"stacked_stream_ce": True, "shift_type": "all"}
 UDA_LEVER_STEPS = 3
-# each lever alone and none: one profiled step after one warm-up, from the
-# seed's state, for the device-busy time each one moves
-UDA_LEVERS_ALONE = (("none", {}, {}, False),
-                    ("stacked_stream_ce", {"stacked_stream_ce": True}, {},
-                     False),
-                    ("head_batched_train", {}, {"head_batched_train": True},
-                     False),
-                    ("shift_type_all", {"shift_type": "all"}, {}, False),
-                    ("fused_resize", {}, {}, True))
 # the coin's host read: the events-coin isr_another_fusion step (the
-# default graph plus the read) against the default step, in turns
-UDA_COIN_READ_STEPS = 3
+# default graph plus the read) against the default step, in turns; 3 steps
+# each until PR 12, cut to keep the script inside its time with
+# phase_train_types (as were PR 12's profiled steps of each lever alone)
+UDA_COIN_READ_STEPS = 1
 UDA_CLI_ITERS = 2
 
 
@@ -3301,8 +3400,7 @@ def phase_uda_options():
     the levers (``uda.stacked_stream_ce``, ``model.head_batched_train``,
     ``uda.shift_type='all'`` and the fused resize) held the same way and
     timed (UDA_LEVER_STEPS steps, sections, peak and live GiB, one
-    profiled step) beside the flagship step of phase_train, and each
-    lever alone profiled (UDA_LEVERS_ALONE); then
+    profiled step) beside the flagship step of phase_train; then
     ``tools.train.main --config cs2dsec --synthetic --fused-resize --set
     uda.isr_another_fusion=true`` for UDA_CLI_ITERS iterations. Returns
     the launches of the optioned steps and the CLI run, and the levers'
@@ -3424,29 +3522,6 @@ def phase_uda_options():
             in timing["memory"].items()), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    alone = {}
-    for name, uda, model, fused in UDA_LEVERS_ALONE:
-        cfg = C.replace(cfg_of(TOGETHER, uda),
-                        model=C.replace(base.model, **model))
-        trainer = DACSTrainer(cfg, device="cuda")
-        state = trainer.init_state(seed=0)
-        set_fused_int_upsample(fused)
-        try:
-            trainer.train_step(state, batch)
-            host, busy, n_events, _ = _device_busy(trainer, state, batch)
-        finally:
-            set_fused_int_upsample(False)
-        alone[name] = {"host_ms": host, "busy_ms": busy, "events": n_events}
-        del trainer, state
-        gc.collect()
-        torch.cuda.empty_cache()
-    timings["levers_alone"] = alone
-    print(f"{tag} levers alone, one profiled step each (host ms, device "
-          "busy ms, device events): " + "; ".join(
-              f"{k} {v['host_ms']:.2f}, " + (
-                  f"{v['busy_ms']:.2f}" if v["busy_ms"] is not None
-                  else "not measured") + f", {v['events']}"
-              for k, v in alone.items()) + f" ({smi})", flush=True)
 
     # through the train CLI
     with tempfile.TemporaryDirectory() as tmp:
@@ -3489,6 +3564,274 @@ def phase_uda_options():
     return totals, levers
 
 
+# the DarkZurich ablation train types at MiT-b5 (the cs2dz preset, 512x512,
+# batch 2, float32) with the JAX experiment grid's model settings (no
+# fusion module; split classifiers for split and no-fusion, 2 events
+# classes for no-fusion), one step each against its plain-version twin:
+# (tag, train type, model settings, UDA options). One b5 state per model
+# shape: no-fusion's two steps share one.
+SPLIT, NO_FUSION, D2N = ("cs2dz_image+raw-isr_split",
+                         "cs2dz_image+raw-isr_no-fusion",
+                         "cs2dz_image+d2n-isr")
+TYPES_MODEL = {SPLIT: {"split_cls": True},
+               NO_FUSION: {"split_cls": True, "events_classes": 2},
+               D2N: {}}
+# the ImageNet feature distance's lambda (the DAFormer default)
+TYPES_FDIST = 0.005
+TYPES_STEPS = (
+    ("split_deflare", SPLIT, {"deflare_aug": True}),
+    ("nofusion_edge", NO_FUSION, {"isr_edge": True}),
+    ("nofusion_cw_fdist", NO_FUSION,
+     {"isr_edge": True, "isr_edge_class_weight": 0.9,
+      "imnet_feature_dist_lambda": TYPES_FDIST}),
+    ("d2n", D2N, {}))
+TYPES_TIMED_STEPS = 3
+TYPES_CLI_ITERS = 2
+# the DarkZurich frames the phase writes: 2 train nights (and their
+# deflared copies) and 2 days at 1920x1080, the days' transferred ISRs as
+# 1920x540 side-by-side PNGs; the source labels in 64x64 squares, so the
+# feature distance's 32x32 cells are mostly pure
+TYPES_FRAMES, TYPES_LABEL_BLOCK = 2, 64
+
+
+def _write_dz_pairs(root):
+    """TYPES_FRAMES train night frames at 1920x1080 (dark class-keyed
+    blocks with noise and a bright glow, a flare), the same frames without
+    the glow under ``night_deflare``, TYPES_FRAMES day frames and their
+    transferred-ISR PNGs (1920x540, the ISR in the right half)."""
+    from PIL import Image
+    g = np.random.default_rng(13)
+    h, w = TEST_FRAME
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    palette = g.integers(5, 70, (19, 3))
+    for i in range(TYPES_FRAMES):
+        name = f"seq01_frame_{i:06d}_rgb_anon.png"
+        blocks = g.integers(0, 19, (h // 120 + 1, w // 120 + 1))
+        lbl = np.repeat(np.repeat(blocks, 120, 0), 120, 1)[:h, :w]
+        base = palette[lbl] + g.integers(0, 12, (h, w, 3))
+        r = np.hypot(xx - g.uniform(0.2, 0.8) * w, yy - g.uniform(0.2, 0.8) * h)
+        glow = 180.0 * np.exp(-0.5 * (r / 150.0) ** 2)[..., None]
+        for sub, img in (("night", base + glow), ("night_deflare", base)):
+            d = os.path.join(root, "rgb_anon", "train", sub, "seq01")
+            os.makedirs(d, exist_ok=True)
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                os.path.join(d, name))
+        d = os.path.join(root, "rgb_anon", "train", "day", "seq02")
+        os.makedirs(d, exist_ok=True)
+        day = 4 * palette[lbl[:, ::-1]] + g.integers(0, 20, (h, w, 3))
+        Image.fromarray(np.clip(day, 0, 255).astype(np.uint8)).save(
+            os.path.join(d, name))
+        d = os.path.join(root, "rgb_anon", "train", "day_t_isr", "seq02")
+        os.makedirs(d, exist_ok=True)
+        t_isr = np.concatenate([day[::2, ::2, 0], 127 + 8 * np.sign(
+            np.diff(day[::2, ::2, 0], axis=1, prepend=0))], axis=1)
+        Image.fromarray(np.clip(t_isr, 0, 255).astype(np.uint8)).save(
+            os.path.join(d, name))
+
+
+def _types_batch(cfg, root):
+    """The phase's batch: 2 synthetic Cityscapes-IC samples with their
+    labels in TYPES_LABEL_BLOCK squares of random classes, and 2 DarkZurich
+    train samples of ``root`` with the deflared pair and the day pair
+    (``DarkZurichDataset(with_day_pair=True)``), crops from a seeded
+    ``random.Random``."""
+    import random
+    from cmda_tpu_torch.data.dark_zurich import DarkZurichDataset
+    from cmda_tpu_torch.data.loader import collate
+    from cmda_tpu_torch.data.synthetic import SyntheticSource
+    d = cfg.data
+    w, h = d.crop_size
+    src = [SyntheticSource(crop_size=(w, h), with_time_res=False)[i]
+           for i in range(2)]
+    g = np.random.default_rng(7)
+    k = TYPES_LABEL_BLOCK
+    for s in src:
+        s["label"] = np.repeat(np.repeat(g.integers(
+            0, 19, (h // k, w // k)), k, 0), k, 1).astype(np.int32)
+    tgt = DarkZurichDataset(root, split="train", isr_params=d.target_isr,
+                            image_crop_size=d.crop_size,
+                            shift_type=d.shift_type, with_day_pair=True,
+                            outputs=("image", "isr", "image_deflare",
+                                     "isr_deflare"))
+    rng = random.Random(0)
+    samples = [tgt.load(i, rng) for i in range(2)]
+    want = {"image", "isr", "image_deflare", "isr_deflare", "day_image",
+            "day_isr"}
+    if any(set(x) != want for x in samples):
+        fail(f"train_types: DarkZurich samples hold "
+             f"{[sorted(x) for x in samples]}, expected {sorted(want)}")
+    return {"source": collate(src), "target": collate(samples)}
+
+
+def phase_train_types():
+    """The DACS trainer's DarkZurich ablations at full width (MiT-b5,
+    cs2dz 512x512, batch 2, float32, random weights from seed 0, the JAX
+    grid's model settings): each of TYPES_STEPS from its model shape's b5
+    state against its plain-version twin (``_twin_step``, launches checked,
+    then TYPES_TIMED_STEPS timed steps and one step's CUDA-event sections
+    beside phase_train's cs2dz step), on a batch of synthetic source
+    samples and DarkZurich frames this phase writes (deflared and day
+    pairs); the feature distance's frozen b5 ``EncoderDecoder`` loads a
+    seeded MiT-b5 it saves as an NVlabs-keyed ``.pth``. Then
+    ``tools.train.main --config cs2dz --synthetic`` as the no-fusion type
+    with ``--isr_edge 1 --feature_dist --imnet`` for TYPES_CLI_ITERS
+    iterations and one evaluation (the fusion-less model's image stream).
+    Returns the launches of the counted steps and the CLI run."""
+    import copy
+    import torch
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.models.common import init_weights
+    from cmda_tpu_torch.models.mit import MIT_VARIANTS, MixVisionTransformer
+    from cmda_tpu_torch.uda.dacs import DACSTrainer
+    from cmda_tpu_torch.utils.weights import load_torch_file
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag, smi = "train_types", smi_line()
+    base = C.cs2dz_image_rawisr_b5()
+    totals = dict.fromkeys(TRAIN_COUNTED, 0)
+    timings = {}
+
+    def cfg_of(train_type, uda):
+        model = C.replace(base.model, train_type=train_type, fusion="",
+                          fusion_isr="", **TYPES_MODEL[train_type])
+        return C.replace(base, model=model, uda=C.replace(base.uda, **uda))
+    with tempfile.TemporaryDirectory(prefix="dz_") as root:
+        if "day" in root or "night" in root:
+            fail(f"{tag}: the temporary directory {root} holds 'day' or "
+                 "'night', which DarkZurich's path rules replace")
+        t0 = time.perf_counter()
+        _write_dz_pairs(root)
+        mit = MixVisionTransformer(MIT_VARIANTS[base.model.backbone]).to(
+            "cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(3)
+        init_weights(mit, gen)
+        imnet_pth = os.path.join(root, "mit_b5_seeded.pth")
+        torch.save(mit.state_dict(), imnet_pth)
+        del mit
+        batch = _types_batch(base, root)
+        timings["setup_s"] = time.perf_counter() - t0
+        print(f"{tag}: DarkZurich frames, deflared and day pairs written, "
+              f"a seeded MiT-b5 saved ({os.path.getsize(imnet_pth)} bytes) "
+              f"and the batch loaded in {timings['setup_s']:.1f} s",
+              flush=True)
+        states = {}
+        for name, train_type, uda in TYPES_STEPS:
+            cfg = cfg_of(train_type, uda)
+            if train_type not in states:
+                t0 = time.perf_counter()
+                states.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+                fd = dict(uda, imnet_feature_dist_lambda=TYPES_FDIST)
+                # no-fusion's state carries the frozen encoder for both
+                # of its steps (the one without the distance leaves it)
+                states[train_type] = DACSTrainer(
+                    cfg_of(train_type, fd), device="cuda").init_state(
+                    seed=0, imnet_state_dict=load_torch_file(imnet_pth)
+                    if train_type == NO_FUSION else None)
+                print(f"{tag}: one b5 {train_type} state built in "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+            logs, _, launches, errors, timing = _twin_step(
+                cfg, batch, f"{tag} {name}", timed_steps=TYPES_TIMED_STEPS,
+                state=copy.deepcopy(states[train_type]), measure=True,
+                profile=False)
+            for k, v in launches.items():
+                totals[k] += v
+            for key in ("mix/loss_feat_consis", "src/loss_imnet_feat_dist"):
+                want = bool(key.startswith("mix") and train_type == NO_FUSION
+                            or key.startswith("src")
+                            and uda.get("imnet_feature_dist_lambda"))
+                if want != (key in logs) or want and not logs[key] > 0:
+                    fail(f"{tag} {name}: {key} {logs.get(key)}")
+            med = statistics.median(timing["step_ms"])
+            dz = STEP_MS_MEDIAN.get("train_cs2dz", float("nan"))
+            timings[name] = {**timing, "twin_errors": errors,
+                             "launches": launches, "logs": logs}
+            print(f"{tag} {name}: {train_type} {TYPES_MODEL[train_type]} "
+                  f"{uda}, launches {launches}, loss {logs['loss']:.5f}; "
+                  + _twin_summary(errors) + "; step ms " + ", ".join(
+                      f"{t:.2f}" for t in timing["step_ms"])
+                  + f", median {med:.2f} against the cs2dz step's {dz:.2f} "
+                  f"({100 * (med / dz - 1):+.1f}%); peak "
+                  f"{timing['peak_gib']:.2f} GiB ({smi})", flush=True)
+            ref = STEP_SECTIONS.get("train_cs2dz", {})
+            print(f"{tag} {name}: step device ms (the cs2dz step's) "
+                  + ", ".join(f"{k} {v:.2f} ({ref.get(k, float('nan')):.2f})"
+                              for k, v in timing["sections"].items())
+                  + f"; memory GiB, live at its start "
+                  f"{timing['start_gib']:.2f}; per section peak / live at "
+                  "its end: " + ", ".join(
+                      f"{k} {p:.2f} / {lv:.2f}" for k, (p, lv)
+                      in timing["memory"].items()), flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        states.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # through the train CLI: no-fusion with edge labels and the
+        # feature distance, one evaluation of the synthetic val set
+        with tempfile.TemporaryDirectory() as work:
+            argv = ["--config", "cs2dz", "--synthetic", "--max-iters",
+                    str(TYPES_CLI_ITERS), "--set",
+                    f"model.train_type={NO_FUSION}", "--set", "model.fusion=",
+                    "--set", "model.fusion_isr=", "--set",
+                    "model.split_cls=true", "--set", "model.events_classes=2",
+                    "--isr_edge", "1", "--feature_dist", str(TYPES_FDIST),
+                    "--imnet", imnet_pth, "--num-workers", "2", "--seed",
+                    "0", "--set", "log_interval=1",
+                    "--set", "checkpoint_interval=1000",
+                    "--set", f"eval_interval={TYPES_CLI_ITERS}",
+                    "--set", "debug_img_interval=0", "--work-dir", work]
+            loop, cli, per_step, run_s, steps, profiled = _run_counted(
+                argv, TYPES_CLI_ITERS)
+            expect = step_launches(loop.trainer)
+            evals = {k: cli[k] - sum(p[k] for p in per_step) for k in cli}
+            want_eval = {**dict.fromkeys(TRAIN_COUNTED, 0),
+                         "fused_resize_argmax": LOOP_VAL}
+            if (per_step != [expect] * TYPES_CLI_ITERS or evals != want_eval
+                    or loop.state.imnet is None):
+                fail(f"{tag} cli: launches per step {per_step}, expected "
+                     f"{expect}; evaluation {evals}, expected {want_eval}")
+            bad = [(r["iter"], k) for r in steps for k, v in r.items()
+                   if not math.isfinite(v)]
+            keys = {"mix/loss_feat_consis", "src/loss_imnet_feat_dist"}
+            if (bad or len(steps) != TYPES_CLI_ITERS
+                    or not keys <= set(steps[0])):
+                fail(f"{tag} cli: records {steps}")
+            with open(loop.log_path) as f:
+                miou = [r["eval"]["mIoU"] for r in map(json.loads, f)
+                        if "eval" in r]
+            if len(miou) != 1 or not math.isfinite(miou[0]):
+                fail(f"{tag} cli: evaluations {miou}")
+            timings["cli"] = {"run_s": run_s, "launches": cli,
+                              "eval_launches": evals, "miou": miou[0],
+                              "iter_ms": [r["time"] * 1e3 for r in steps]}
+            print(f"{tag} cli: tools.train.main {' '.join(argv[:22])}: "
+                  f"{TYPES_CLI_ITERS} iterations and one evaluation of "
+                  f"{LOOP_VAL} frames in {run_s:.1f} s, launches {cli} "
+                  f"(evaluation {evals}), losses " + ", ".join(
+                      f"{r['loss']:.5f}" for r in steps) + ", feature "
+                  "distance " + ", ".join(
+                      f"{r['src/loss_imnet_feat_dist']:.5f}" for r in steps)
+                  + f", mIoU {miou[0]:.4f}, iteration ms " + ", ".join(
+                      f"{r['time'] * 1e3:.2f}" for r in steps)
+                  + f"; {_profiled_summary(TYPES_CLI_ITERS, profiled)} "
+                  f"({smi})", flush=True)
+            del loop
+    for k, v in cli.items():
+        totals[k] += v
+    timings["phase_s"] = time.perf_counter() - t_phase
+    print(f"{tag}: launches {totals}; phase {timings['phase_s']:.1f} s "
+          f"({smi})", flush=True)
+    print(f"{tag} timings " + json.dumps(timings, default=float), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def device_time_only(root):
     """``--device-time ROOT``: build the kernels of the checkout at ROOT
     (another commit unpacked beside this one, say) and print one JSON line
@@ -3510,6 +3853,30 @@ def device_time_only(root):
         flush=True)
 
 
+def phases_only(names):
+    """``--phases``: build the kernels and run the named phases alone."""
+    import torch
+    from cmda_tpu_torch.ops import _build
+    unknown = set(names) - {"isr", "ce", "train_types"}
+    if unknown:
+        fail(f"unknown phases {sorted(unknown)}")
+    print(smi_line(), flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()
+    if {"isr", "ce"} & set(names):
+        times = port_kernel_times()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        if "isr" in names:
+            phase_isr(gen, times)
+        if "ce" in names:
+            phase_ce(gen, times)
+    if "train_types" in names:
+        phase_train(preset="cs2dz")
+        print(json.dumps({"train_types": phase_train_types()}), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3517,9 +3884,17 @@ def main():
     if sys.argv[1:2] == ["--device-time"] and len(sys.argv) == 3:
         device_time_only(sys.argv[2])
         return
+    if sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3:
+        phases_only(sys.argv[2].split(","))
+        return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}")
     from cmda_tpu_torch.ops import _build
+    t_main = time.perf_counter()
+
+    def elapsed(what):
+        print(f"elapsed: {time.perf_counter() - t_main:.1f} s after {what}",
+              flush=True)
     smi = smi_line()
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
@@ -3532,6 +3907,7 @@ def main():
 
     t0 = time.perf_counter()
     log = _build.build()
+    elapsed("_build.build")
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{', '.join(_build.SOURCES)}", flush=True)
     for name, entry in log.items():
@@ -3542,46 +3918,64 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     times = port_kernel_times()
+    elapsed("port_kernel_times")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     results = [phase_argmax(gen, times), phase_isr(gen, times)]
     phase_main_path(results)
+    elapsed("phase_main_path(results)")
     results += phase_ce(gen, times)
     phase_train_micro()
+    elapsed("phase_train_micro")
     launches = phase_train()
+    elapsed("phase_train")
     # the JAX package's bench.py step: bfloat16 at batch 8
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_micro("bfloat16")
+    elapsed('phase_train_micro("bfloat16")')
     bf16_launches = phase_train("bfloat16", batch=8)
+    elapsed('phase_train("bfloat16", batch=8)')
     # the same with bench.py's --teacher-bf16 --moments bfloat16
     gc.collect()
     torch.cuda.empty_cache()
     opts_launches = phase_train("bfloat16", batch=8, options=True)
+    elapsed('phase_train("bfloat16", batch=8, options=True)')
     gc.collect()
     torch.cuda.empty_cache()
     loop_launches = phase_loop()
+    elapsed("phase_loop")
     # the other train types at the micro size (cs2dz; cs2dsec_image+events
     # with grad_clip), then the DarkZurich preset's step and run
     for variant in TRAIN_MICRO_VARIANTS:
         phase_train_micro(variant=variant)
+        elapsed("phase_train_micro(variant=variant)")
     gc.collect()
     torch.cuda.empty_cache()
     dz_launches = phase_train(preset="cs2dz")
+    elapsed('phase_train(preset="cs2dz")')
     gc.collect()
     torch.cuda.empty_cache()
     dz_loop_launches = phase_loop("cs2dz")
+    elapsed('phase_loop("cs2dz")')
     gc.collect()
     torch.cuda.empty_cache()
     test_launches = phase_test()
+    elapsed("phase_test")
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as corpus_root:
         corpus = write_real_corpus(corpus_root)
         real_launches = phase_real_corpus(corpus)
+        elapsed("phase_real_corpus(corpus)")
         isr_launches, isr_mix_launches = phase_isr_options(corpus)
+        elapsed("phase_isr_options(corpus)")
     phase_pseudo_weight()
+    elapsed("phase_pseudo_weight")
     uda_launches, lever_launches = phase_uda_options()
+    elapsed("phase_uda_options")
+    types_launches = phase_train_types()
+    elapsed("phase_train_types")
     for r in results:
         # the serving kernels keep their serving-path count under
         # "launches"; the training path's count goes beside it, and the
@@ -3602,6 +3996,7 @@ def main():
         r["launches_isr_options_mix"] = isr_mix_launches[r["name"]]
         r["launches_uda_options"] = uda_launches[r["name"]]
         r["launches_uda_levers"] = lever_launches[r["name"]]
+        r["launches_train_types"] = types_launches[r["name"]]
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi, flush=True)

@@ -61,8 +61,11 @@ def build_model(cfg: C.RunConfig, device="cuda", seed: int | None = None):
 def select_logits(model: FusionEncoderDecoder, image, second, output: str):
     """The ``output`` stream's stride-4 logits (NHWC) for NHWC ``image`` and
     optional ``second`` modality, decoding only that stream; 'fusion'
-    without a second modality falls back to the image stream, as in the JAX
+    without a second modality, or of a model without a fusion module
+    (``model.fusion=''``), falls back to the image stream, as in the JAX
     package."""
+    if output == "fusion" and model.fusion_module is None:
+        output = "image"
     if output == "image" or second is None:
         args, mode, output = (image, None, None), "no_fusion", "image"
     elif output == "isr":

@@ -150,28 +150,65 @@ class Classifier(nn.Conv2d):
         return super().forward(self.dropout(x, keep).float())
 
 
+class DAFormerHead(DAFormerDecoder):
+    """Single-stream DAFormer head (the reference ``DAFormerHead``: keys
+    ``embed_layers.{i}.proj``, ``fuse_layer``, ``conv_seg``) -> stride-4
+    logits [B, C, h, w], in eval mode: ``EncoderDecoder``'s head."""
+
+    def __init__(self, cfg: DAFormerHeadConfig):
+        super().__init__(cfg)
+        self.conv_seg = Classifier(cfg.channels, cfg.num_classes,
+                                   cfg.dropout_ratio)
+
+    def forward(self, feats):
+        return self.conv_seg(self.decode(feats))
+
+
 class DAFormerFusionHead(DAFormerDecoder):
     """Multi-stream head over the {image, events, fusion, ISR} pyramids with
-    ``share='full'``: one decoder and one classifier for every stream.
+    ``share='full'``: one decoder for every stream, and one classifier, or
+    with ``split_cls`` three: ``conv_seg`` for the image stream,
+    ``conv_seg_events`` (``events_classes`` wide, default ``num_classes``)
+    for the events and ISR streams and ``conv_seg_fusion`` for the fusion
+    stream (the reference's key names); ``conv_seg_fusion`` only where the
+    model has a fusion stream (``with_fusion``), as the JAX head has its
+    parameters only when a fusion stream is decoded.
 
     In eval mode (BN on running statistics) several streams are decoded as
     one batch stacked along dim 0 and split back, which equals the
     per-stream loop; with ``batched_train`` (``model.head_batched_train``)
     also with batch statistics, each stream a group of the grouped
-    ``StreamBatchNorm``."""
+    ``StreamBatchNorm``. With ``split_cls`` the streams always take the
+    per-stream loop, as in the JAX head."""
 
     def __init__(self, cfg: DAFormerHeadConfig, share: str = "full",
                  split_cls: bool = False, events_classes: int | None = None,
-                 batched_train: bool = False):
-        if share != "full" or split_cls or events_classes is not None:
+                 batched_train: bool = False, with_fusion: bool = True):
+        if share != "full":
             raise NotImplementedError(
-                f"share={share!r}, split_cls={split_cls}, events_classes="
-                f"{events_classes}: only share='full' without split "
-                "classifiers is ported (ROADMAP queue A item 6)")
+                f"share={share!r}: only share='full' is ported (ROADMAP "
+                "queue A item 6)")
         super().__init__(cfg, stream="image")
         self.conv_seg = Classifier(cfg.channels, cfg.num_classes,
                                    cfg.dropout_ratio)
+        self.split_cls = split_cls
+        if split_cls:
+            self.conv_seg_events = Classifier(
+                cfg.channels, events_classes or cfg.num_classes,
+                cfg.dropout_ratio)
+            if with_fusion:
+                self.conv_seg_fusion = Classifier(
+                    cfg.channels, cfg.num_classes, cfg.dropout_ratio)
         self.batched_train = batched_train
+
+    def classifier(self, stream: str) -> Classifier:
+        """The classifier of ``stream`` ('image', 'events', 'fusion' or
+        'isr'; the ISR stream takes the events classifier)."""
+        if not self.split_cls or stream == "image":
+            return self.conv_seg
+        if stream in ("events", "isr"):
+            return self.conv_seg_events
+        return self.conv_seg_fusion
 
     def forward(self, feats: dict, streams=None, *, train: bool = False,
                 bn_train: bool | None = None, bn_update: bool = True,
@@ -183,40 +220,42 @@ class DAFormerFusionHead(DAFormerDecoder):
 
         ``bn_train`` defaults to ``train``. With running-statistics BN, or
         with ``batched_train``, several streams are decoded as one batch
-        stacked along dim 0 and split back; with batch statistics each
-        stream is a group of the decoder's BatchNorms, which gives the
-        values and running statistics of the per-stream loop. Otherwise the
-        streams go one after another through the shared decoder, in the
-        order image, events, fusion, isr, each moving the running statistics
-        in turn. ``dropout_keep`` [S, B, C] holds the Dropout2d keep-masks of
-        the S decoded streams in that order (needed when ``train``): four
-        with the ISR stream, three (image, events, fusion) without it, as
+        stacked along dim 0 and split back (never with ``split_cls``); with
+        batch statistics each stream is a group of the decoder's
+        BatchNorms, which gives the values and running statistics of the
+        per-stream loop. Otherwise the streams go one after another through
+        the shared decoder, in the order image, events, fusion, isr, each
+        moving the running statistics in turn. ``dropout_keep`` [S, B, C]
+        holds the Dropout2d keep-masks of the decoded streams in that order
+        (needed when ``train``; rows past the decoded streams are unused):
         the JAX head draws one mask per stream it decodes (the batched head
-        draws one [S*B] mask, the same masks stacked)."""
+        one [S*B] mask, the same masks stacked)."""
         bn = train if bn_train is None else bn_train
         plan = [("image", "image_output", feats.get("f_image")),
                 ("events", "events_output", feats.get("f_events")),
                 ("fusion", "fusion_output", feats.get("f_fusion")),
                 ("isr", "img_self_res_output", feats.get("f_img_self_res"))]
-        active = [(k, f) for n, k, f in plan
+        active = [(n, k, f) for n, k, f in plan
                   if f is not None and (streams is None or n in streams)]
         out = {k: None for _, k, _ in plan}
         if train and self.conv_seg.dropout_ratio > 0 and dropout_keep is None:
             raise ValueError("train=True needs the Dropout2d keep-masks")
-        if len(active) > 1 and (not bn or self.batched_train):
+        if (len(active) > 1 and not self.split_cls
+                and (not bn or self.batched_train)):
             n = len(active)
-            stacked = [torch.cat([f[i] for _, f in active], dim=0)
-                       for i in range(len(active[0][1]))]
+            stacked = [torch.cat([f[i] for _, _, f in active], dim=0)
+                       for i in range(len(active[0][2]))]
             keep = (dropout_keep[:n].reshape(-1, dropout_keep.shape[-1])
                     if train and dropout_keep is not None else None)
             logits = self.conv_seg(
                 self.decode(stacked, bn, bn_update, groups=n if bn else 1),
                 keep)
-            for (key, _), part in zip(active, logits.chunk(n, dim=0)):
+            for (_, key, _), part in zip(active, logits.chunk(n, dim=0)):
                 out[key] = part
             return out
-        for j, (key, f) in enumerate(active):
+        for j, (name, key, f) in enumerate(active):
             keep = (dropout_keep[j] if train and dropout_keep is not None
                     else None)
-            out[key] = self.conv_seg(self.decode(f, bn, bn_update), keep)
+            out[key] = self.classifier(name)(self.decode(f, bn, bn_update),
+                                             keep)
         return out

@@ -18,12 +18,18 @@ the ISR input (the single-batch forward of ``cs2dz_image+raw-isr`` and
 events backbone takes [depth, 2, B] and three streams are decoded.
 
 Training runs in the modes ``default`` (``fusion_module`` on the image and
-events pyramids), ``fusion_isr`` (``fusion_isr_module`` on the image and the
-ISR pyramid, or the events pyramid when the single batch carries the ISR
-as its events input) and ``fusion_all`` (the mean of both modules, the
-events+ISR double batch only); each fusion module takes its own drop-path
+events pyramids; no fusion stream for a model without one,
+``model.fusion=""``), ``fusion_isr`` (``fusion_isr_module`` on the image and
+the ISR pyramid, or the events pyramid when the single batch carries the
+ISR as its events input), ``fusion_all`` (the mean of both modules, the
+events+ISR double batch only) and ``no_fusion`` (the image and events
+streams, single batch); each fusion module takes its own drop-path
 uniforms, which the JAX forward draws from the module's own key, so one
 ``ForwardDraws`` serves every mode.
+
+``EncoderDecoder`` is the single-backbone segmentor (one MiT, the
+single-stream DAFormer head): the frozen ImageNet encoder of the feature
+distance.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from .daformer import DAFormerFusionHead, DAFormerHeadConfig
+from .daformer import DAFormerFusionHead, DAFormerHead, DAFormerHeadConfig
 from .fusion import build_fusion_module, num_drop_path_blocks
 from .mit import MIT_VARIANTS, MixVisionTransformer
 from ..ops.resize import resize_bilinear
@@ -123,7 +129,8 @@ class FusionEncoderDecoder(nn.Module):
         self.decode_head = DAFormerFusionHead(
             cfg.head, share=cfg.share_decoder, split_cls=cfg.split_cls,
             events_classes=cfg.events_classes,
-            batched_train=cfg.head_batched_train)
+            batched_train=cfg.head_batched_train,
+            with_fusion=bool(cfg.fusion or cfg.fusion_isr))
 
     def new_draws(self, batch: int, *, generator: torch.Generator,
                   device: torch.device, with_isr: bool = True,
@@ -157,21 +164,22 @@ class FusionEncoderDecoder(nn.Module):
         'f_img_self_res'} NCHW pyramids (None where absent). ``draws``
         (training) carries the drop-path uniforms; None is eval. Training
         is ported for modes 'default' and 'fusion_isr', with the events+ISR
-        double batch or with events alone, and 'fusion_all', with the
-        double batch."""
+        double batch or with events alone, 'fusion_all', with the double
+        batch, and 'no_fusion', with events alone."""
         double = (events is not None and img_self_res is not None
                   and events.shape == img_self_res.shape)
         if draws is not None and not (
                 events is not None
                 and (mode in ("default", "fusion_isr")
                      and (double or img_self_res is None)
-                     or mode == "fusion_all" and double)):
+                     or mode == "fusion_all" and double
+                     or mode == "no_fusion" and img_self_res is None)):
             raise NotImplementedError(
                 f"training forward in mode {mode!r} with events "
                 f"{'absent' if events is None else 'present'} and ISR "
                 f"{'absent' if img_self_res is None else 'present'} is not "
                 "ported")
-        if (draws is not None and mode != "default"
+        if (draws is not None and mode in ("fusion_isr", "fusion_all")
                 and draws.fusion_isr is None):
             raise ValueError(f"a training forward in mode {mode!r} needs "
                              "ForwardDraws.fusion_isr")
@@ -259,6 +267,33 @@ class FusionEncoderDecoder(nn.Module):
         if got is None:  # events-less inference falls back to image stream
             got = out["image_output"]
         return got
+
+
+class EncoderDecoder(nn.Module):
+    """Single-backbone segmentor (mirrors cmda_tpu.models.segmentor.
+    EncoderDecoder): ``backbone`` (MiT) and ``decode_head``
+    (``DAFormerHead``), in eval mode: no drop-path, no dropout, BatchNorm on
+    running statistics."""
+
+    def __init__(self, cfg: SegmentorConfig = SegmentorConfig(),
+                 dtype: str = "float32"):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = DTYPES[dtype]
+        mit_cfg = MIT_VARIANTS[cfg.backbone]
+        mit_cfg = type(mit_cfg)(**{**mit_cfg.__dict__,
+                                   "drop_path_rate": cfg.drop_path_rate})
+        self.backbone = MixVisionTransformer(mit_cfg, remat=cfg.remat)
+        self.decode_head = DAFormerHead(cfg.head)
+
+    def extract_feat(self, img):
+        """NHWC image -> the backbone's four NCHW feature maps (eval)."""
+        return self.backbone(_nchw(img, self.dtype))
+
+    def forward(self, img):
+        """NHWC image -> NHWC float32 logits at the input size."""
+        logits = self.decode_head(self.extract_feat(img))
+        return resize_bilinear(logits.permute(0, 2, 3, 1), img.shape[1:3])
 
 
 def multi_scale_flip_inference(apply_fn, img, *, scales=(1.0,),

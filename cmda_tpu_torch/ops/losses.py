@@ -5,6 +5,9 @@
   ones included (the reference's ``F.cross_entropy(reduction='none')``
   followed by ``.mean()``). ``F.cross_entropy(reduction='mean',
   ignore_index=...)`` divides by the valid count instead, so it is not used.
+  With ``class_weight`` [C] each pixel's CE is also times its class's
+  weight, and the sum is divided by the summed class weight of the valid
+  pixels (floored at 1e-8), as ``F.cross_entropy(weight=...)`` normalises.
 * ``weighted_cross_entropy_stacked``: the same CE of S stacked streams
   with one label and weight map, one value per stream.
 * ``pixel_accuracy``: 100 * #(argmax == label) / numel(label), ignored
@@ -19,15 +22,24 @@ import torch
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                            weight: torch.Tensor | None = None,
-                           ignore_index: int = 255) -> torch.Tensor:
-    """Mean per-pixel CE with pixel weights, B*H*W denominator."""
+                           ignore_index: int = 255,
+                           class_weight: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Mean per-pixel CE with pixel weights, B*H*W denominator; with
+    ``class_weight``, the class-weighted sum over the valid pixels' summed
+    class weight."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    if class_weight is not None:
+        cw = class_weight.float()[safe]
+        nll = nll * cw
     nll = torch.where(valid, nll, 0.0)
     if weight is not None:
         nll = nll * weight.float()
+    if class_weight is not None:
+        return nll.sum() / torch.where(valid, cw, 0.0).sum().clamp(min=1e-8)
     return nll.mean()
 
 

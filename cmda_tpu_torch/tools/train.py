@@ -16,6 +16,12 @@ JAX package).
         --cyclegan cityscapes_ICD_to_dsec_EN.pth
     python -m cmda_tpu_torch.tools.train --config cs2dz --synthetic \\
         --work-dir work_dirs/dz [--teacher-bf16] [--set uda.alpha=0.99]
+    python -m cmda_tpu_torch.tools.train --config cs2dz \\
+        --source-root data/cityscapes --target-root data/dark_zurich \\
+        --set model.train_type=cs2dz_image+raw-isr_no-fusion \\
+        --set model.fusion= --set model.split_cls=true \\
+        --set model.events_classes=2 --isr_edge 1 \\
+        --feature_dist 0.005 --imnet mit_b5.pth
 
 The source is Cityscapes-IC (``--source-root``), with Rare Class Sampling
 from ``--rcs-json-dir`` when ``data.rcs_enabled``; the target is DSEC-Night
@@ -59,12 +65,9 @@ from ..utils.weights import (load_pretrained_backbone, load_torch_file,
                              strip_prefix)
 
 # the JAX CLI's flags that lead to code the port does not have, by ROADMAP
-# queue A item: 5 fdist's frozen encoder, 7 parallelism
-_UNPORTED = {
-    **dict.fromkeys(("--multi-host", "--coordinator", "--data-parallel",
-                     "--shard-opt-state", "--tensor-parallel"), 7),
-    "--imnet": 5,
-}
+# queue A item: 7 parallelism
+_UNPORTED = dict.fromkeys(("--multi-host", "--coordinator", "--data-parallel",
+                           "--shard-opt-state", "--tensor-parallel"), 7)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -96,6 +99,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--pretrained-backbone", default=None,
                    help="NVlabs mit_bX.pth loaded into both backbones "
                         "(reference mix_transformer.py:339-357)")
+    p.add_argument("--imnet", default=None,
+                   help="NVlabs mit_bX.pth of the frozen ImageNet encoder "
+                        "of the feature distance (default with "
+                        "--feature_dist: --pretrained-backbone)")
     p.add_argument("--cyclegan", default=None,
                    help="frozen day-events generator state_dict "
                         "(reference dacs.py:96-103)")
@@ -443,7 +450,10 @@ def init_state(trainer, cfg: C.RunConfig, args):
     """The initial train state: the CycleGAN from ``--cyclegan`` (a
     DataParallel ``module.`` prefix stripped), the MiT weights of
     ``--pretrained-backbone`` in both encoders and the teacher a copy of
-    the student; random from the config's seed otherwise."""
+    the student; random from the config's seed otherwise. With the
+    ImageNet feature distance (``uda.imnet_feature_dist_lambda`` > 0) the
+    frozen encoder's MiT from ``--imnet``, else from
+    ``--pretrained-backbone`` (without either the step raises)."""
     cyclegan = None
     if args.cyclegan:
         if args.cyclegan.endswith(".npz"):
@@ -452,7 +462,11 @@ def init_state(trainer, cfg: C.RunConfig, args):
                                       "queue A item 5)")
         cyclegan = strip_prefix(load_torch_file(args.cyclegan),
                                 prefixes=("module.",))
-    state = trainer.init_state(cfg.seed, cyclegan_state_dict=cyclegan)
+    imnet_src = args.imnet or args.pretrained_backbone
+    imnet = (load_torch_file(imnet_src)
+             if imnet_src and cfg.uda.imnet_feature_dist_lambda > 0 else None)
+    state = trainer.init_state(cfg.seed, cyclegan_state_dict=cyclegan,
+                               imnet_state_dict=imnet)
     if args.pretrained_backbone:
         sd = load_torch_file(args.pretrained_backbone)
         for backbone in (state.model.backbone_image,

@@ -9,7 +9,9 @@ reference mmseg/apis/train.py:39-131 and its hooks).
 * ``save_checkpoint`` / ``load_checkpoint``: one ``iter_<n>.pth`` holding
   the student in reference mmseg keys (``state_dict``, what
   ``apis.init_segmentor(checkpoint=...)`` reads), the teacher
-  (``ema_state_dict``), AdamW (``optimizer``), ``step`` and ``meta``;
+  (``ema_state_dict``), AdamW (``optimizer``), ``step`` and ``meta``, and
+  with the feature distance the frozen ImageNet encoder
+  (``imnet_state_dict``);
   written to a temporary name and renamed, so a cut run never leaves a
   partial checkpoint.
 * ``TrainLoop.run``: per iteration the debug snapshot (before the step, on
@@ -201,6 +203,8 @@ def save_checkpoint(state: DACSTrainState, path: str,
             "ema_state_dict": state.ema_model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "step": state.step, "meta": meta}
+    if state.imnet is not None:
+        ckpt["imnet_state_dict"] = state.imnet.state_dict()
     tmp = f"{path}.tmp"
     torch.save(ckpt, tmp)
     os.replace(tmp, path)
@@ -208,7 +212,8 @@ def save_checkpoint(state: DACSTrainState, path: str,
 
 def load_checkpoint(state: DACSTrainState, path: str) -> DACSTrainState:
     """Fill ``state`` (from ``DACSTrainer.init_state``) from a checkpoint
-    of ``save_checkpoint``: student, teacher, AdamW and step. Read on the
+    of ``save_checkpoint``: student, teacher, AdamW, step and the frozen
+    ImageNet encoder where both have one. Read on the
     CPU: ``load_state_dict`` moves each tensor to where its counterpart
     lives, and AdamW's step counts stay on the CPU, as in a run that was
     never cut (on the device, each would cost a synchronisation per
@@ -217,6 +222,8 @@ def load_checkpoint(state: DACSTrainState, path: str) -> DACSTrainState:
     state.model.load_state_dict(ckpt["state_dict"])
     state.ema_model.load_state_dict(ckpt["ema_state_dict"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
+    if state.imnet is not None and "imnet_state_dict" in ckpt:
+        state.imnet.load_state_dict(ckpt["imnet_state_dict"])
     state.step = int(ckpt["step"])
     return state
 

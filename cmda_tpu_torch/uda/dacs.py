@@ -1,6 +1,8 @@
-"""DACS, the CMDA self-training step (mirrors cmda_tpu.uda.dacs for the
-fusion train types ``cs2dsec_image+events_together`` (the flagship),
-``cs2dsec_image+events`` and ``cs2dz_image+raw-isr``).
+"""DACS, the CMDA self-training step (mirrors cmda_tpu.uda.dacs for every
+train type of its ``DACSTrainer``: ``cs2dsec_image+events_together`` (the
+flagship), ``cs2dsec_image+events``, ``cs2dz_image+raw-isr`` and the
+DarkZurich ablations ``cs2dz_image+raw-isr_split``,
+``cs2dz_image+raw-isr_no-fusion`` and ``cs2dz_image+d2n-isr``).
 
 One ``train_step``:
   1. day events (the cs2dsec types): the frozen CycleGAN on the mean of the
@@ -61,6 +63,39 @@ One ``train_step``:
      ``optim.moment_dtype``), parameters without a gradient given zeros as
      optax would.
 
+The DarkZurich ablations (cmda_tpu/uda/dacs.py:380-444, 581-662), each a
+two-stream loss (``split_stream_loss``: image and events streams, each with
+its own labels and pixel weights):
+  * ``_split``: the teacher decodes the image and events streams on (night
+    image, night ISR), each giving its own pseudo-label through the argmax
+    kernel; both streams' losses x2, the events stream's mixed label and
+    weight from its own pseudo-label;
+  * ``_no-fusion``: teacher and student in mode ``no_fusion`` (no fusion
+    stream), the image stream's pseudo-label for both; with
+    ``uda.isr_edge`` the events (ISR) stream learns the labels' edge map
+    (``seg_label_to_edge_label``), class-weighted [1 - w, w] when
+    ``uda.isr_edge_class_weight`` w lies in [0, 1] (a plain checkpointed
+    resize + CE, as it is XLA in the JAX step), and the mixed pass adds the
+    ISR-feature consistency: ``lambda_isr_features`` x
+    ``feature_consistency_loss`` of the student's image features against
+    its own eval-mode features of the mixed ISR, detached;
+  * ``d2n-isr``: the teacher's image stream on the target's day image gives
+    the day pseudo-label (a plain argmax of the resized logits) that the
+    events stream learns on the source pass; the night pseudo-label is the
+    argmax of the mean of the image and events streams' softmaxes, with
+    the confidence-ratio weight (no rows zeroed), all plain torch as it is
+    XLA in JAX; a second ClassMix mask set drawn from the day pseudo-label
+    (``StepDraws.mix_scores2``) mixes the day and night ISRs and the events
+    stream's mixed label; no ISR kernel.
+``uda.deflare_aug``: the teacher of the cs2dz types but d2n reads the
+target's deflared pair (``image_deflare``, ``isr_deflare``). The ImageNet
+feature distance (``uda.imnet_feature_dist_lambda`` > 0): the source pass
+adds lambda x ``masked_feat_dist`` between the student's last image
+feature map and the frozen ``EncoderDecoder``'s (``DACSTrainState.imnet``)
+on the thing classes of the 32x-downscaled source label. A batch without a
+key the train type or option reads (the day pair, the deflared pair)
+raises ``KeyError`` naming it.
+
 Randomness is injectable: ``train_step(state, batch, draws)`` takes a
 ``StepDraws``; without it the trainer draws one from its own
 ``torch.Generator`` on the device, seeded from the config's seed and the
@@ -94,8 +129,8 @@ bfloat16-rounded float32, so no layer casts per call.
 ``model.head_batched_train`` decodes the head's streams as one stacked batch
 in training too (``models/daformer.py``).
 
-Any other train type or option raises ``NotImplementedError`` naming it
-and its ROADMAP item. So does ``uda.pallas_ce=False`` or
+Any other train type raises ``NotImplementedError`` naming it and its
+ROADMAP item. So does ``uda.pallas_ce=False`` or
 ``uda.use_pallas_isr=False``: in the JAX package they choose XLA's chain
 over a Pallas kernel; the port always runs its CUDA kernels, and their
 plain PyTorch versions are the tests' reference, on no path of the card.
@@ -115,7 +150,9 @@ from ..data.wire import decode_wire
 from ..models.common import Conv2d, Linear
 from ..models.cyclegan import (ResnetGenerator, generator_from_params,
                                init_generator)
-from ..models.segmentor import FusionEncoderDecoder, ForwardDraws
+from ..models.common import init_weights
+from ..models.segmentor import (EncoderDecoder, FusionEncoderDecoder,
+                                ForwardDraws)
 from ..ops.augment import (IsrNoiseDraws, add_noise_on_isr, class_mix_mask,
                            isr_noise_draws, jitter_factors,
                            maybe_color_jitter_normalized, maybe_gaussian_blur,
@@ -125,14 +162,18 @@ from ..ops.isr_kernel import batched_isr
 from ..ops.normalize import denorm_image
 from ..train.optim import (clip_grad_global_norm_, make_optimizer,
                            make_schedules, set_lr, zero_missing_grads)
-from .transforms import multi_stream_loss, pseudo_label_and_weight_coarse
+from ..utils.weights import load_pretrained_backbone
+from .transforms import (downscale_label_ratio, feature_consistency_loss,
+                         masked_feat_dist, multi_stream_loss,
+                         pseudo_label_and_weight_coarse,
+                         seg_label_to_edge_label, split_stream_loss)
 
 TOGETHER = "cs2dsec_image+events_together"
-TRAIN_TYPES = (TOGETHER, "cs2dsec_image+events", "cs2dz_image+raw-isr")
-# flag -> (the only value ported, the ROADMAP queue A item that ports the
-# others)
-_PORTED_UDA = {"isr_edge": (False, 5), "deflare_aug": (False, 5),
-               "imnet_feature_dist_lambda": (0.0, 5)}
+SPLIT = "cs2dz_image+raw-isr_split"
+NO_FUSION = "cs2dz_image+raw-isr_no-fusion"
+D2N = "cs2dz_image+d2n-isr"
+TRAIN_TYPES = (TOGETHER, "cs2dsec_image+events", "cs2dz_image+raw-isr",
+               SPLIT, NO_FUSION, D2N)
 ISR_NOISE_TYPES = ("", "noise", "blur", "noise+blur")
 
 
@@ -147,7 +188,9 @@ class StepDraws:
     uniforms and Dropout2d masks of the source and the mixed forward (one
     set for both, as the JAX step passes both forwards the same rngs);
     isr_noise: the ``add_noise_on_isr`` draws of the mixed ISR's channel 0
-    [B, H, W, 1] with ``uda.isr_noise_dacs_type`` (None without it)."""
+    [B, H, W, 1] with ``uda.isr_noise_dacs_type`` (None without it);
+    mix_scores2 [B, C+1]: the d2n type's second ClassMix ranking, over the
+    day pseudo-label (None for the other types)."""
     coin: torch.Tensor
     mix_scores: torch.Tensor
     jitter_gate: torch.Tensor
@@ -157,6 +200,7 @@ class StepDraws:
     isr_dirs: torch.Tensor
     fwd: ForwardDraws
     isr_noise: IsrNoiseDraws | None = None
+    mix_scores2: torch.Tensor | None = None
 
     def to(self, device) -> "StepDraws":
         """The same draws on ``device``."""
@@ -175,8 +219,9 @@ class DACSTrainState:
     """The student, its EMA teacher, AdamW, the frozen CycleGAN and the
     number of steps taken; with ``uda.teacher_bf16``, ``teacher``, the
     bfloat16 copy of the EMA teacher that its forward reads (derived from
-    ``ema_model`` each step, so no checkpoint holds it). ``train_step``
-    updates the state in place."""
+    ``ema_model`` each step, so no checkpoint holds it); with the ImageNet
+    feature distance, ``imnet``, the frozen ImageNet ``EncoderDecoder``.
+    ``train_step`` updates the state in place."""
     model: FusionEncoderDecoder
     ema_model: FusionEncoderDecoder
     optimizer: torch.optim.Optimizer
@@ -184,6 +229,7 @@ class DACSTrainState:
     step: int = 0
     schedules: dict = field(default_factory=dict)
     teacher: FusionEncoderDecoder | None = None
+    imnet: EncoderDecoder | None = None
 
 
 def _to_device(tree, device):
@@ -213,6 +259,19 @@ class DACSTrainer:
         # a graph of the step runs the ISR fusion module
         self.isr_fusion = self.coin_graph or (self.together
                                               and u.fuse_both_ice_and_e)
+        # the DarkZurich ablations' two-stream losses
+        self.split = train_type == SPLIT
+        self.nofusion = train_type == NO_FUSION
+        self.d2n = train_type == D2N
+        self.two_stream = self.split or self.nofusion or self.d2n
+        self.enable_fdist = u.imnet_feature_dist_lambda > 0
+        # the [1 - w, w] class weight of no-fusion's edge stream
+        self.edge_cw = None
+        if u.isr_edge and 0.0 <= u.isr_edge_class_weight <= 1.0:
+            self.edge_cw = torch.tensor([1.0 - u.isr_edge_class_weight,
+                                         u.isr_edge_class_weight],
+                                        dtype=torch.float32,
+                                        device=self.device)
         # set to a list to collect (name, CUDA event, peak bytes since the
         # last mark, live bytes) at the step's section boundaries: a
         # device-time and memory breakdown
@@ -224,11 +283,11 @@ class DACSTrainer:
             raise NotImplementedError(
                 f"model.train_type={cfg.model.train_type!r} is not ported "
                 f"(ROADMAP queue A item 5; ported: {', '.join(TRAIN_TYPES)})")
-        for name, (want, item) in _PORTED_UDA.items():
-            if getattr(cfg.uda, name) != want:
-                raise NotImplementedError(
-                    f"uda.{name}={getattr(cfg.uda, name)!r} is not ported "
-                    f"(ROADMAP queue A item {item})")
+        if cfg.uda.isr_edge and cfg.model.train_type != NO_FUSION:
+            # edge labels live on the no-fusion ISR decoder only (reference
+            # dacs.py:136-139)
+            raise ValueError(f"uda.isr_edge needs model.train_type="
+                             f"{NO_FUSION!r}")
         for name in ("pallas_ce", "use_pallas_isr"):
             if not getattr(cfg.uda, name):
                 raise NotImplementedError(
@@ -257,11 +316,17 @@ class DACSTrainer:
     # state
     # ------------------------------------------------------------------
     def init_state(self, seed: int | None = None,
-                   cyclegan_state_dict: dict | None = None) -> DACSTrainState:
+                   cyclegan_state_dict: dict | None = None,
+                   imnet_state_dict: dict | None = None) -> DACSTrainState:
         """Student with the reference random init from ``seed`` (default
-        ``cfg.seed``), the teacher as its copy, AdamW, and the CycleGAN
-        (from ``cyclegan_state_dict`` in reference keys, sized from it, or
-        random)."""
+        ``cfg.seed``), the teacher as its copy, AdamW, the CycleGAN (from
+        ``cyclegan_state_dict`` in reference keys, sized from it, or
+        random) and, with the ImageNet feature distance, the frozen
+        ImageNet encoder: an ``EncoderDecoder`` whose backbone holds
+        ``imnet_state_dict`` (an NVlabs ``mit_bX.pth`` state_dict; its head,
+        which the distance does not read, random from ``seed``). Without
+        those weights ``imnet`` is None and the step raises, as the JAX
+        step fails on its missing ``imnet_params``."""
         cfg = self.cfg
         seed = cfg.seed if seed is None else seed
         model = build_model(cfg, self.device, seed)
@@ -279,11 +344,20 @@ class DACSTrainer:
                     gen.manual_seed(seed + 1)
                     cyclegan = init_generator(ResnetGenerator(), gen)
             cyclegan = cyclegan.eval().requires_grad_(False)
+        imnet = None
+        if self.enable_fdist and imnet_state_dict is not None:
+            with torch.device(self.device):
+                imnet = EncoderDecoder(cfg.model, dtype=cfg.dtype)
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed + 2)
+            init_weights(imnet, gen)
+            load_pretrained_backbone(imnet.backbone, imnet_state_dict)
+            imnet = imnet.eval().requires_grad_(False)
         return DACSTrainState(model=model, ema_model=ema,
                               optimizer=make_optimizer(model, cfg.optim),
                               cyclegan=cyclegan,
                               schedules=make_schedules(cfg.optim),
-                              teacher=self._teacher_copy(ema))
+                              teacher=self._teacher_copy(ema), imnet=imnet)
 
     def _teacher_copy(self, ema: FusionEncoderDecoder):
         """With ``uda.teacher_bf16``, a copy of ``ema`` whose parameters
@@ -307,7 +381,8 @@ class DACSTrainer:
         """The draws of step ``state.step`` for ``batch`` images of size
         ``hw`` (default: ``data.crop_size``, which is (W, H)) from a
         generator on the device seeded with (cfg.seed, step). The ISR
-        noise's come last, so the other draws do not depend on it."""
+        noise's come last, then d2n's second ClassMix ranking, so the
+        other draws do not depend on them."""
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(cfg.seed * 1_000_003 + state.step)
@@ -329,10 +404,13 @@ class DACSTrainer:
         if cfg.uda.isr_noise_dacs_type and cfg.uda.mixed_image_to_mixed_isr:
             h, w = hw if hw is not None else cfg.data.crop_size[::-1]
             isr_noise = isr_noise_draws((batch, h, w, 1), gen, dev)
+        mix_scores2 = (uniform(batch, cfg.data.num_classes + 1) if self.d2n
+                       else None)
         return StepDraws(
             coin=coin, mix_scores=mix_scores, jitter_gate=jitter_gate,
             jitter=jitter, blur_gate=blur_gate, sigma=sigma,
-            isr_dirs=isr_dirs, fwd=fwd, isr_noise=isr_noise)
+            isr_dirs=isr_dirs, fwd=fwd, isr_noise=isr_noise,
+            mix_scores2=mix_scores2)
 
     # ------------------------------------------------------------------
     # pieces
@@ -466,15 +544,57 @@ class DACSTrainer:
         self._mark("ema")
 
         teacher_model = ema_model if teacher is None else teacher
-        teacher_out = teacher_model.forward_logits(
-            *self._teacher_inputs(night_image, night_events, night_isr,
-                                  use_events, events_graph),
-            resize_to_input=False, streams=("fusion",), train=False,
-            bn_train=True, bn_update=False)
-        pseudo_label, pseudo_weight = pseudo_label_and_weight_coarse(
-            teacher_out["fusion_output"], night_image.shape[1:3],
-            threshold=u.pseudo_threshold, ignore_top=u.pseudo_weight_ignore_top,
-            ignore_bottom=u.pseudo_weight_ignore_bottom)
+        pl_kw = dict(threshold=u.pseudo_threshold,
+                     ignore_top=u.pseudo_weight_ignore_top,
+                     ignore_bottom=u.pseudo_weight_ignore_bottom)
+
+        def teacher_out(*inputs, streams, resize=False):
+            return teacher_model.forward_logits(
+                *inputs, resize_to_input=resize, streams=streams, train=False,
+                bn_train=True, bn_update=False)
+
+        def coarse(logits):
+            return pseudo_label_and_weight_coarse(
+                logits, night_image.shape[1:3], **pl_kw)
+        # the deflare ablation: the teacher of the cs2dz types reads the
+        # flare-removed night pair (cmda_tpu/uda/dacs.py:316-319)
+        pl_image, pl_isr = night_image, night_isr
+        if u.deflare_aug:
+            _require(tgt, ("image_deflare", "isr_deflare"), "uda.deflare_aug")
+            pl_image, pl_isr = tgt["image_deflare"], tgt["isr_deflare"]
+        pl2 = pw2 = target_day_pl = day_pair_isr = None
+        if self.split:
+            out = teacher_out(pl_image, pl_isr, None, "default",
+                              streams=("image", "events"))
+            pseudo_label, pseudo_weight = coarse(out["image_output"])
+            pl2, pw2 = coarse(out["events_output"])
+        elif self.nofusion:
+            out = teacher_out(pl_image, pl_isr, None, "no_fusion",
+                              streams=("image",))
+            pseudo_label, pseudo_weight = coarse(out["image_output"])
+        elif self.d2n:
+            _require(tgt, ("day_image", "day_isr"), f"{D2N!r}")
+            day_pair_isr = tgt["day_isr"].float()
+            out = teacher_out(tgt["day_image"], None, None, "no_fusion",
+                              streams=("image",), resize=True)
+            target_day_pl = out["image_output"].argmax(dim=-1).to(
+                torch.int32)
+            out = teacher_out(night_image, night_isr, None, "default",
+                              streams=("image", "events"), resize=True)
+            avg = (0.5 * torch.softmax(out["image_output"].float(), dim=-1)
+                   + 0.5 * torch.softmax(out["events_output"].float(),
+                                         dim=-1))
+            pseudo_label = avg.argmax(dim=-1).to(torch.int32)
+            ratio = (avg.amax(dim=-1) >= u.pseudo_threshold).float().mean()
+            pseudo_weight = torch.ones_like(avg[..., 0]) * ratio
+        else:
+            image, isr = ((night_image, night_isr) if self.has_events
+                          else (pl_image, pl_isr))
+            out = teacher_out(*self._teacher_inputs(
+                image, night_events, isr, use_events, events_graph),
+                streams=("fusion",))
+            pseudo_label, pseudo_weight = coarse(out["fusion_output"])
+        del out
         self._mark("teacher")
 
         selected = sample_class_half(draws.mix_scores, day_label,
@@ -485,11 +605,24 @@ class DACSTrainer:
                                                   draws.jitter)
         mixed_img = maybe_gaussian_blur(mixed_img, draws.sigma, apply_blur)
         mixed_lbl = torch.where(masks, day_label, pseudo_label)
-        mixed_weight = one_mix(masks, torch.ones_like(pseudo_weight),
-                               pseudo_weight)
+        ones = torch.ones_like(pseudo_weight)
+        mixed_weight = one_mix(masks, ones, pseudo_weight)
         mixed_events = (one_mix(masks, day_events, night_events)
                         if self.has_events else None)
-        if u.mixed_image_to_mixed_isr:
+        mixed_lbl2 = mixed_weight2 = None
+        if self.split:
+            mixed_lbl2 = torch.where(masks, day_label, pl2)
+            mixed_weight2 = one_mix(masks, ones, pw2)
+        if self.d2n:
+            # the second mask set, drawn from the day pseudo-label
+            if draws.mix_scores2 is None:
+                raise ValueError(f"{D2N!r} needs StepDraws.mix_scores2")
+            sel2 = sample_class_half(draws.mix_scores2, target_day_pl,
+                                     cfg.data.num_classes)
+            masks2 = class_mix_mask(target_day_pl, sel2, cfg.data.num_classes)
+            mixed_lbl2 = torch.where(masks2, target_day_pl, pseudo_label)
+            mixed_isr = one_mix(masks2, day_pair_isr, night_isr.float())
+        elif u.mixed_image_to_mixed_isr:
             mixed_isr = (self._mixed_isr_3ch(mixed_img) if u.shift_3_channel
                          else self._mixed_isr(mixed_img, draws.isr_dirs))
             if u.isr_noise_dacs_type:
@@ -523,7 +656,9 @@ class DACSTrainer:
                     masks=masks,
                     mixed_img=mixed_img, mixed_lbl=mixed_lbl,
                     mixed_weight=mixed_weight, mixed_events=mixed_events,
-                    mixed_isr=mixed_isr)
+                    mixed_isr=mixed_isr, mixed_lbl2=mixed_lbl2,
+                    mixed_weight2=mixed_weight2, target_day_pl=target_day_pl,
+                    day_pair_isr=day_pair_isr)
 
     def _teacher_inputs(self, image, events, isr, use_events, events_graph):
         """(image, second input, ISR, mode) of the teacher's forward
@@ -560,8 +695,65 @@ class DACSTrainer:
                     (P["mixed_img"], torch.where(
                         pick, P["mixed_events"], P["mixed_isr"]), None),
                     "default")
+        if self.d2n:   # the source pass takes the target's day ISR
+            return ((P["day_image"], P["day_pair_isr"], None),
+                    (P["mixed_img"], P["mixed_isr"], None), "default")
         return ((P["day_image"], P["day_isr"], None),
-                (P["mixed_img"], P["mixed_isr"], None), "default")
+                (P["mixed_img"], P["mixed_isr"], None),
+                "no_fusion" if self.nofusion else "default")
+
+    def _stream_losses(self, logits: dict, P: dict, mixed: bool, weights):
+        """(loss, logs) of one pass's stream logits: the two-stream loss of
+        the DarkZurich ablations, ``multi_stream_loss`` otherwise."""
+        u = self.cfg.uda
+        if not self.two_stream:
+            if mixed:
+                return multi_stream_loss(
+                    logits, P["mixed_lbl"], P["mixed_weight"],
+                    stacked=u.stacked_stream_ce, **weights)
+            return multi_stream_loss(logits, P["day_label"], None,
+                                     stacked=u.stacked_stream_ce, **weights)
+        if mixed:
+            label = P["mixed_lbl"]
+            events = P["mixed_lbl2"] if P["mixed_lbl2"] is not None else label
+            pixel = {"image": P["mixed_weight"],
+                     "events": (P["mixed_weight2"] if self.split
+                                else P["mixed_weight"])}
+        else:
+            label, pixel = P["day_label"], {}
+            events = P["target_day_pl"] if self.d2n else label
+        if u.isr_edge:
+            events = seg_label_to_edge_label(events)
+        return split_stream_loss(
+            logits, {"image": label, "events": events}, pixel,
+            w_image=u.loss_weight_image, w_events=u.loss_weight_events,
+            factor=2.0 if self.split else 1.0,
+            events_class_weight=self.edge_cw)
+
+    def _fdist_loss(self, state: DACSTrainState, f_image, day_image,
+                    day_label) -> torch.Tensor:
+        """The ImageNet feature distance on the thing classes
+        (cmda_tpu/uda/dacs.py:243-258): lambda x ``masked_feat_dist`` of the
+        student's last image feature map [B, C, h, w] against the frozen
+        encoder's, over the cells whose 32x-downscaled source label is one
+        of ``uda.imnet_feature_dist_classes``."""
+        u = self.cfg.uda
+        if state.imnet is None:
+            raise ValueError(
+                "uda.imnet_feature_dist_lambda > 0 needs the frozen ImageNet "
+                "encoder's weights: pass init_state(imnet_state_dict=...) "
+                "(the train CLI's --imnet, or --pretrained-backbone)")
+        with torch.no_grad():
+            f_imnet = state.imnet.extract_feat(day_image)[-1]
+        scale = day_label.shape[-1] // f_imnet.shape[-1]
+        gt_small = downscale_label_ratio(
+            day_label, scale, u.imnet_feature_dist_scale_min_ratio,
+            self.cfg.data.num_classes)
+        mask = torch.isin(gt_small, torch.tensor(
+            list(u.imnet_feature_dist_classes), dtype=gt_small.dtype,
+            device=gt_small.device))
+        return u.imnet_feature_dist_lambda * masked_feat_dist(
+            f_image[-1], f_imnet, mask)
 
     @staticmethod
     def _batch_hw(batch: dict):
@@ -615,23 +807,37 @@ class DACSTrainer:
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)
 
-        logits = model.forward_train(*src_in, mode, draws.fwd)[0]
-        loss_src, logs_src = multi_stream_loss(
-            logits, P["day_label"], None, stacked=u.stacked_stream_ce,
-            **weights)
+        logits, feats = model.forward_train(*src_in, mode, draws.fwd)
+        loss_src, logs_src = self._stream_losses(logits, P, False, weights)
+        if self.enable_fdist:
+            fd = self._fdist_loss(state, feats["f_image"], P["day_image"],
+                                  P["day_label"])
+            logs_src["loss_imnet_feat_dist"] = fd.detach()
+            loss_src = loss_src + fd
         self._mark("src_fwd")
         loss_src.backward()
-        del logits
+        del logits, feats
         self._mark("src_bwd")
         loss, logs_mix = loss_src.detach(), {}
         if not u.source_only:
-            logits = model.forward_train(*mix_in, mode, draws.fwd)[0]
-            loss_mix, logs_mix = multi_stream_loss(
-                logits, P["mixed_lbl"], P["mixed_weight"],
-                stacked=u.stacked_stream_ce, **weights)
+            logits, feats = model.forward_train(*mix_in, mode, draws.fwd)
+            loss_mix, logs_mix = self._stream_losses(logits, P, True, weights)
+            if self.nofusion:
+                # the ISR-feature consistency (reference dacs.py:807-819,
+                # encoder_decoder.py:833-848): the student's eval-mode
+                # features of the mixed ISR are the detached target
+                with torch.no_grad():
+                    f_isr = model.extract_feat(
+                        None, P["mixed_isr"].permute(0, 3, 1, 2).to(
+                            model.dtype), None, "no_fusion")["f_events"]
+                consistency = feature_consistency_loss(
+                    feats["f_image"], f_isr,
+                    u.lambda_feature_consistency) * u.lambda_isr_features
+                logs_mix["loss_feat_consis"] = consistency.detach()
+                loss_mix = loss_mix + consistency
             self._mark("mix_fwd")
             loss_mix.backward()
-            del logits
+            del logits, feats
             self._mark("mix_bwd")
             loss = loss + loss_mix.detach()
 
@@ -649,6 +855,18 @@ class DACSTrainer:
                 "pseudo_weight": P["pseudo_weight"].mean(),
                 "use_events": P["use_events"].float()}
         return state, logs
+
+
+def _require(target: dict, keys, what: str):
+    """Raise KeyError naming the keys of ``keys`` the target batch lacks."""
+    missing = [k for k in keys if k not in target]
+    if missing:
+        raise KeyError(
+            f"{what} reads the target batch's {missing}, which it lacks: "
+            "DarkZurichDataset gives the day pair with with_day_pair=True "
+            "and the deflared pair with outputs image_deflare / "
+            "isr_deflare; the train CLI asks for neither, as the JAX CLI "
+            "does not")
 
 
 @torch.no_grad()

@@ -16,6 +16,18 @@
   pixels whose max softmax >= threshold), with optional top/bottom rows
   zeroed; the coarse form takes stride-4 logits through the fused
   upsample+argmax kernel, so the full-size teacher logits never exist.
+* ``split_stream_loss``: the two-stream loss of the cs2dz split, no-fusion
+  and d2n train types, each stream with its own labels and pixel weights,
+  both terms times ``factor``; an unweighted stream through the fused
+  upsample+CE kernels, the class-weighted edge stream (``isr_edge`` with
+  ``isr_edge_class_weight``) a checkpointed plain resize + class-weighted
+  CE, as it is XLA in the JAX step; ``acc_seg`` from the image stream.
+* ``seg_label_to_edge_label``: the binary edge map of a label map (3x3
+  replicate-padded window mean != centre, 0 where the window holds an
+  ignored pixel).
+* ``feature_consistency_loss`` (the ISR-feature consistency),
+  ``downscale_label_ratio`` and ``masked_feat_dist`` (the ImageNet feature
+  distance), on NCHW features.
 """
 from __future__ import annotations
 
@@ -25,7 +37,8 @@ from ..models.common import maybe_checkpoint
 from ..ops.fused_ce import fused_resize_ce, resize_ce
 from ..ops.fused_resize import (fused_resize_argmax, is_integer_factor,
                                 resize_argmax)
-from ..ops.losses import accuracy_of_labels, weighted_cross_entropy_stacked
+from ..ops.losses import (accuracy_of_labels, weighted_cross_entropy,
+                          weighted_cross_entropy_stacked)
 from ..ops.resize import resize_bilinear
 
 
@@ -121,6 +134,97 @@ def multi_stream_loss(logits: dict, label: torch.Tensor,
             loss = loss + l_events * w_events
     logs["loss_seg"] = loss
     return loss, {k: v.detach() for k, v in logs.items()}
+
+
+def split_stream_loss(logits: dict, labels: dict, weights: dict, *,
+                      w_image: float, w_events: float, factor: float = 2.0,
+                      ignore_index: int = 255,
+                      events_class_weight: torch.Tensor | None = None):
+    """The image and events streams' CEs, each on its own label map
+    (``labels['image']``, ``labels['events']``) and pixel weight
+    (``weights.get(...)``, None for none): loss = (l_image * w_image +
+    l_events * w_events) * factor (factor 2: the split type; 1: no-fusion
+    and d2n). ``events_class_weight`` [C_events] weights the events stream's
+    classes (a checkpointed plain resize + CE, no kernel). Returns (loss,
+    logs), the logs as 0-dim tensors."""
+    size = tuple(labels["image"].shape[1:3])
+
+    def class_weighted_ce(x, lbl, w):
+        return maybe_checkpoint(lambda x: weighted_cross_entropy(
+            resize_bilinear(x.float(), size), lbl, w, ignore_index,
+            events_class_weight), x, remat=True)
+
+    l_img = stream_ce(logits["image_output"], labels["image"],
+                      weights.get("image"), ignore_index)
+    if events_class_weight is None:
+        l_ev = stream_ce(logits["events_output"], labels["events"],
+                         weights.get("events"), ignore_index)
+    else:
+        l_ev = class_weighted_ce(logits["events_output"], labels["events"],
+                                 weights.get("events"))
+    loss = l_img * w_image * factor + l_ev * w_events * factor
+    logs = {"loss_image": l_img, "loss_events": l_ev, "loss_seg": loss,
+            "acc_seg": _stream_accuracy(logits["image_output"],
+                                        labels["image"], ignore_index)}
+    return loss, {k: v.detach() for k, v in logs.items()}
+
+
+def seg_label_to_edge_label(label: torch.Tensor,
+                            ignore_index: int = 255) -> torch.Tensor:
+    """[B, H, W] labels -> int32 edge map (reference
+    dacs_transforms.py:174-183): 1 where the 3x3 replicate-padded window's
+    mean differs from the centre, 0 where the window's max is at or above
+    ``ignore_index``."""
+    lf = label.float()[:, None]
+    padded = torch.nn.functional.pad(lf, (1, 1, 1, 1), mode="replicate")
+    # an exact integer sum, then the division, as the JAX function's
+    win = torch.nn.functional.avg_pool2d(padded, 3, stride=1,
+                                         divisor_override=1) / 9.0
+    mx = torch.nn.functional.max_pool2d(padded, 3, stride=1)
+    edge = torch.where(win != lf, 1, 0)
+    edge = torch.where(mx >= ignore_index, 0, edge)
+    return edge[:, 0].to(torch.int32)
+
+
+def feature_consistency_loss(f_image, f_target, lam: float) -> torch.Tensor:
+    """lam * sum over scales of the mean squared difference between
+    ``f_image`` and the detached ``f_target`` (reference
+    encoder_decoder.py:833-848), in float32."""
+    loss = 0.0
+    for a, b in zip(f_image, f_target):
+        loss = loss + ((a.float() - b.detach().float()) ** 2).mean()
+    return lam * loss
+
+
+def downscale_label_ratio(gt: torch.Tensor, scale_factor: int,
+                          min_ratio: float, n_classes: int,
+                          ignore_index: int = 255) -> torch.Tensor:
+    """[B, H, W] -> [B, H/s, W/s] int32 (reference utils.py:18-40): each
+    s x s block's majority class (the ignore id counted as a class), or
+    ``ignore_index`` where that class holds less than ``min_ratio`` of the
+    block."""
+    if scale_factor <= 1:
+        raise ValueError(f"scale_factor {scale_factor} must be above 1")
+    ignore_sub = n_classes
+    out = torch.where(gt == ignore_index, ignore_sub, gt).long()
+    onehot = torch.nn.functional.one_hot(out, n_classes + 1).float()
+    b, h, w, c = onehot.shape
+    s = scale_factor
+    pooled = onehot.reshape(b, h // s, s, w // s, s, c).mean(dim=(2, 4))
+    ratio, lbl = pooled.amax(dim=-1), pooled.argmax(dim=-1)
+    lbl = torch.where(lbl == ignore_sub, ignore_index, lbl)
+    lbl = torch.where(ratio < min_ratio, ignore_index, lbl)
+    return lbl.to(torch.int32)
+
+
+def masked_feat_dist(f_student: torch.Tensor, f_imnet: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """The mean over the ``mask`` [B, h, w] positions of the L2 norm over
+    channels of the NCHW feature difference (reference dacs.py:317-326)."""
+    diff = f_student.float() - f_imnet.float()
+    dist = torch.sqrt((diff * diff).sum(dim=1) + 1e-12)
+    m = mask.float()
+    return (dist * m).sum() / m.sum().clamp(min=1.0)
 
 
 def _weight_from_prob(prob, threshold, ignore_top, ignore_bottom):

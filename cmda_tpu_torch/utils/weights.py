@@ -1,8 +1,8 @@
 """Carry weights into the port's modules.
 
 * ``load_jax_variables``: a JAX package variable tree ({'params',
-  'batch_stats'} as numpy arrays, e.g. from ``FusionEncoderDecoder.init``)
-  -> the port's module of the same kind. It renames flax paths to the
+  'batch_stats'} as numpy arrays, e.g. from ``FusionEncoderDecoder.init``
+  or ``EncoderDecoder.init``) -> the port's module of the same kind. It renames flax paths to the
   reference mmseg state_dict keys, unstacks the scanned MiT stages
   (``blocks{s}`` -> ``block{s}.{i}``) and transposes kernels:
       Dense       [in, out]       -> Linear weight [out, in]
@@ -37,6 +37,14 @@ _SEGMENT_RULES = (
     (re.compile(r"depthwise$"), lambda m: "depthwise_conv"),
     (re.compile(r"pointwise$"), lambda m: "pointwise_conv"),
     (re.compile(r"(decoder_image|cls)$"), lambda m: None),   # flattened
+)
+# whole-key rewrites after the segments are renamed: the single-stream
+# head's ``decoder`` (the reference DAFormerHead's unsuffixed names) and
+# the split classifiers (``conv_seg_events`` / ``conv_seg_fusion``)
+_KEY_RULES = (
+    (re.compile(r"(^|\.)decoder\.embed_layers_image\."), r"\1embed_layers."),
+    (re.compile(r"(^|\.)decoder\.fuse_layer_image\."), r"\1fuse_layer."),
+    (re.compile(r"(^|\.)cls_(events|fusion)\.conv_seg\."), r"\1conv_seg_\2."),
 )
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
@@ -99,9 +107,16 @@ def _torch_keys(path: tuple, depth: int) -> list[str]:
     if leaf not in _LEAF:
         raise KeyError(f"unmapped leaf {'/'.join(path)}")
     if stage is None:
-        return [".".join(names + [_LEAF[leaf]])]
-    return [".".join(names[:stage + 1] + [str(i)] + names[stage + 1:]
-                     + [_LEAF[leaf]]) for i in range(depth)]
+        return [_rewrite(".".join(names + [_LEAF[leaf]]))]
+    return [_rewrite(".".join(names[:stage + 1] + [str(i)]
+                              + names[stage + 1:] + [_LEAF[leaf]]))
+            for i in range(depth)]
+
+
+def _rewrite(key: str) -> str:
+    for pat, repl in _KEY_RULES:
+        key = pat.sub(repl, key)
+    return key
 
 
 def _is_stacked(path: tuple) -> bool:
@@ -279,7 +294,9 @@ def load_pretrained_backbone(backbone: nn.Module, sd: dict) -> nn.Module:
 #        or bfloat16 with optim.moment_dtype='bfloat16', which
 #        ``train_state_to_numpy`` hands out as their exact float32 values;
 #        optim.grad_clip's chain level holds no state),
-#    "cyclegan_params": the ResnetGenerator's flax tree, or None}
+#    "cyclegan_params": the ResnetGenerator's flax tree, or None,
+#    "imnet_params" (optional): the frozen ImageNet EncoderDecoder's params
+#        tree, or None}
 
 def _cyclegan_keys(n_blocks: int) -> dict[tuple, str]:
     """flax path (module, leaf) of the JAX ResnetGenerator -> reference
@@ -336,8 +353,11 @@ def _groups_by_part(optimizer) -> dict[str, list]:
 def load_jax_train_state(state, jax_state: dict):
     """Fill a ``DACSTrainState`` from a training state in the JAX layout:
     params, running BN statistics, the EMA params, the AdamW moments and
-    counts of both groups, the step and the CycleGAN. Raises on any key
-    left over or missing, or a parameter whose optimizer group differs."""
+    counts of both groups, the step, the CycleGAN and the frozen ImageNet
+    encoder's backbone (the part its feature distance reads; the JAX
+    ``imnet_params`` hold no BatchNorm statistics for its head). Raises on
+    any key left over or missing, or a parameter whose optimizer group
+    differs."""
     load_jax_variables(state.model, {"params": jax_state["params"],
                                      "batch_stats": jax_state["batch_stats"]})
     ema_sd = tree_to_state_dict(jax_state["ema_params"])
@@ -376,6 +396,9 @@ def load_jax_train_state(state, jax_state: dict):
         sd = cyclegan_to_state_dict(jax_state["cyclegan_params"])
         state.cyclegan.load_state_dict({k: torch.from_numpy(
             np.ascontiguousarray(v)) for k, v in sd.items()})
+    if state.imnet is not None and jax_state.get("imnet_params") is not None:
+        load_jax_variables(state.imnet.backbone,
+                           {"params": jax_state["imnet_params"]["backbone"]})
     return state
 
 

@@ -156,10 +156,12 @@ def dz_root(tmp_path_factory):
                                  n_images=3, size=(120, 72))
 
 
-def test_dark_zurich_dataset_bitwise(dz_root, numpy_isr):
+def test_dark_zurich_dataset_bitwise(dz_root, numpy_isr, tmp_path):
     """val (with labels), test, and train (crop, flip, the crop corner's
-    'random' direction) with one random.Random per package, and the
-    3-channel ISR: every key bitwise."""
+    'random' direction) with one random.Random per package, the 3-channel
+    ISR, and the d2n day pair (no day frames in this tree: no day keys in
+    either) and the deflared outputs (over a copy of the tree with darker
+    ``night_deflare`` frames): every key bitwise."""
     p = TC.cs2dz_image_rawisr_b5().data.target_isr
     jp = JC.cs2dz_image_rawisr_b5().data.target_isr
     geo = dict(image_resize_size=(96, 64), image_crop_size=(64, 48))
@@ -178,9 +180,25 @@ def test_dark_zurich_dataset_bitwise(dz_root, numpy_isr):
         r_ours, r_ref = random.Random(5), random.Random(5)
         for i in range(len(ref)):
             _tree_equal(ours.load(i, r_ours), ref.load(i, r_ref))
-    for kw in (dict(with_day_pair=True), dict(outputs=("image_deflare",))):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            TDZ(dz_root, isr_params=p, **kw)
+    import shutil
+    root = str(tmp_path / "dz")
+    shutil.copytree(dz_root, root)
+    night = os.path.join(root, "rgb_anon", "train", "night")
+    shutil.copytree(night, night + "_deflare")
+    for seq in os.listdir(night + "_deflare"):
+        for name in os.listdir(os.path.join(night + "_deflare", seq)):
+            f = os.path.join(night + "_deflare", seq, name)
+            Image.fromarray(np.asarray(Image.open(f)) // 2).save(f)
+    for kw in (dict(with_day_pair=True),
+               dict(outputs=("image_deflare", "isr_deflare"),
+                    shift_type="random")):
+        ours, ref = (D(root, isr_params=q, **geo, split="train", **kw)
+                     for D, q in ((TDZ, p), (JDZ, jp)))
+        r_ours, r_ref = random.Random(6), random.Random(6)
+        for i in range(len(ref)):
+            got = ours.load(i, r_ours)
+            _tree_equal(got, ref.load(i, r_ref))
+        assert set(got) == set(kw.get("outputs", ("image", "isr")))
     for D, q in ((TDZ, p), (JDZ, jp)):
         with pytest.raises(NotImplementedError, match="auto_threshold"):
             D(dz_root, isr_params=q, auto_threshold=True)

@@ -410,9 +410,6 @@ def _build(argv):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--isr_edge", "1"], "uda.isr_edge.*item 5"),
-    (["--feature_dist", "0.5"], "imnet_feature_dist_lambda.*item 5"),
-    (["--deflare_aug"], "deflare_aug.*item 5"),
     (["--fusion", "af"], "'average'.*item 6"),
     (["--fusion", "caf"], "'convert_avg'.*item 6"),
     (["--fusion_isr", "af"], "'average'.*item 6"),
@@ -435,12 +432,20 @@ def test_unported_flags_raise_from_their_owner(argv, match):
     (["--isd_shift_type", "all"],
      lambda a, c: c.uda.shift_type == c.data.shift_type == "all"),
     (["--fused-resize"], lambda a, c: a.fused_resize),
+    (["--isr_edge", "1", "--set",
+      "model.train_type=cs2dz_image+raw-isr_no-fusion"],
+     lambda a, c: c.uda.isr_edge and c.uda.lambda_isr_features == 1.0),
+    (["--feature_dist", "0.5"],
+     lambda a, c: c.uda.imnet_feature_dist_lambda == 0.5),
+    (["--deflare_aug"], lambda a, c: c.uda.deflare_aug),
 ], ids=lambda v: "_".join(v) if isinstance(v, list) else "")
 def test_uda_option_flags_build(argv, reached):
-    """The flags whose options train since the UDA options slice build the
-    config, the datasets, the trainer and its state, and reach the config
-    (``--fused-resize`` the parsed arguments: ``main`` sets the process's
-    phase upsample from it, held in tests/test_torch_uda_options.py)."""
+    """The flags whose options train since the UDA options slice (and,
+    since the train types slice, ``--isr_edge``, ``--feature_dist`` and
+    ``--deflare_aug``) build the config, the datasets, the trainer and its
+    state, and reach the config (``--fused-resize`` the parsed arguments:
+    ``main`` sets the process's phase upsample from it, held in
+    tests/test_torch_uda_options.py)."""
     args, cfg = _build(["--config", "tiny", "--synthetic"] + argv)
     assert reached(args, cfg)
 
@@ -449,7 +454,7 @@ def test_dz_auto_threshold_and_parse_time_refusals():
     with pytest.raises(NotImplementedError, match="unimplemented in the "
                        "reference"):
         _build(["--config", "cs2dz", "--dz_auto_threshold"])
-    for flag, item in (("--multi-host", 7), ("--imnet", 5)):
+    for flag, item in (("--multi-host", 7), ("--data-parallel", 7)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             ttrain.parse_args(["--synthetic", flag, "x"])
     with pytest.raises(ValueError, match="isr_noise_dacs_type"):

@@ -447,7 +447,7 @@ def test_cli_runs_resumes_and_refuses_unported_flags(tmp_path, capsys):
     assert loop.state.step == 3
     assert os.path.exists(tmp_path / "b" / "iter_3.pth")
 
-    for flag, item in (("--imnet", 5), ("--multi-host", 7)):
+    for flag, item in (("--shard-opt-state", 7), ("--multi-host", 7)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tcli.parse_args(["--synthetic", flag, "x"])
     assert tcli.parse_args(["--synthetic", "--fused-resize"]).fused_resize

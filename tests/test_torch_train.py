@@ -637,9 +637,9 @@ def test_mixed_isr_on_identical_image():
 
 def test_unported_flags_raise():
     _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="isr_edge.*item 5"):
-        DACSTrainer(TC.replace(tcfg, uda=TC.replace(
-            tcfg.uda, isr_edge=True)), device="cpu")
+    with pytest.raises(NotImplementedError, match="share='half'.*item 6"):
+        DACSTrainer(TC.replace(tcfg, model=TC.replace(
+            tcfg.model, share_decoder="half")), device="cpu").init_state()
     with pytest.raises(NotImplementedError, match="train_type"):
         DACSTrainer(TC.replace(tcfg, model=TC.replace(
-            tcfg.model, train_type="cs2dz_image+d2n-isr")), device="cpu")
+            tcfg.model, train_type="cs2dz_image")), device="cpu")

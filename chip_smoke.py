@@ -5,10 +5,11 @@
     python3 chip_smoke.py --device-time ROOT
         # only the device and per-call times of every port kernel of the
         # checkout at ROOT, at the points the main paths launch them
-    python3 chip_smoke.py --phases isr,ce,train_types
+    python3 chip_smoke.py --phases isr,ce,train_types,image_trainers
         # a short check of some phases alone (isr, ce: the kernel times and
         # phase_isr, phase_ce; train_types: the cs2dz step of phase_train,
-        # then phase_train_types); prints no result line
+        # then phase_train_types; image_trainers: phase_image_trainers);
+        # prints no result line
 
 Phases, any failure exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -149,7 +150,25 @@ Phases, any failure exits non-zero:
      no-fusion type through ``tools.train.main --imnet`` for 2 iterations
      and one evaluation; the CE kernels' C = 2 point is held and timed in
      3 and 5;
- 15. one JSON line of per-kernel results, the nvidia-smi line, and last
+ 15. the CycleGAN workflow and the image-only trainers
+     (``phase_image_trainers``): ``create_cityscapes_image_change --mode
+     crops`` on two 2048x1024 grayscale PNGs per domain written on the
+     spot, ``tools.train_cyclegan.main`` at the JAX CLI's defaults (1
+     channel, ngf 64, 9 blocks, ndf 64, a 3-layer PatchGAN, lsgan, pool 50,
+     load 286, crop 256, batch 1) for 4 steps (finite logs, the generators
+     move, the npz's ``g_a`` reads back equal), 2 steps at pool 1 on the
+     card against the CPU from those weights (losses, parameters within
+     2 lr a step, the pool's choices), ``--mode en`` with that npz on two
+     2048x1024 IC frames against the generator applied in-process; OrgDACS
+     at MiT-b5 (cs2dz 512x512 batch 2, no fusion module, the ImageNet
+     feature distance, rows 15 / 120 cropped, a random 3-channel day ->
+     night generator) for 3 steps with its step time, sections and peak
+     memory, its micro step on the card against the CPU; DACSImage with
+     ``isrd2isrn`` at MiT-b5 for 2 steps; the prototype functions at
+     [2,128,128,256], 19 classes, memory 5000 on the card against the CPU,
+     timed. None of the five kernels is on these paths: their counters
+     must not move (``launches_image_trainers``);
+ 16. one JSON line of per-kernel results, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -1257,8 +1276,8 @@ TRAIN_BF16_KERNEL_MOMENT_RTOL = 2.0 ** -6
 
 
 # phase_train's timed steps after its 3 counted ones: few, so the whole
-# script stays well inside its time limit
-TRAIN_TIMED_STEPS = 3
+# script, phase_image_trainers included, stays well inside its time limit
+TRAIN_TIMED_STEPS = 2
 # the bare step's median by phase tag ("train_cs2dz", ...) and the
 # synthetic run's steady iteration ("loop_cs2dz", ...), for the real runs
 STEP_MS_MEDIAN = {}
@@ -2523,7 +2542,7 @@ def _tree_bytes(root):
                for d, _, files in os.walk(root) for f in files)
 
 
-def _median_ms(fn, reps=5):
+def _median_ms(fn, reps=3):
     out = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -3383,7 +3402,7 @@ UDA_OPTION_STEPS = (
 # the JAX package's step levers together on the flagship (with the fused
 # resize), timed beside phase_train's flagship f32 step
 UDA_LEVERS = {"stacked_stream_ce": True, "shift_type": "all"}
-UDA_LEVER_STEPS = 3
+UDA_LEVER_STEPS = 1
 # the coin's host read: the events-coin isr_another_fusion step (the
 # default graph plus the read) against the default step, in turns; 3 steps
 # each until PR 12, cut to keep the script inside its time with
@@ -3585,7 +3604,7 @@ TYPES_STEPS = (
      {"isr_edge": True, "isr_edge_class_weight": 0.9,
       "imnet_feature_dist_lambda": TYPES_FDIST}),
     ("d2n", D2N, {}))
-TYPES_TIMED_STEPS = 3
+TYPES_TIMED_STEPS = 1
 TYPES_CLI_ITERS = 2
 # the DarkZurich frames the phase writes: 2 train nights (and their
 # deflared copies) and 2 days at 1920x1080, the days' transferred ISRs as
@@ -3832,6 +3851,586 @@ def phase_train_types():
     return totals
 
 
+# the CycleGAN workflow and the image-only trainers (phase_image_trainers):
+# the JAX CLI's defaults (1 channel, ngf 64, 9 blocks, ndf 64, a 3-layer
+# PatchGAN, lsgan, pool 50, load 286, crop 256, batch 1) on 256 px crops of
+# IMG_CG_FRAMES grayscale 2048x1024 PNGs per domain written on the spot,
+# IMG_CG_STEPS CLI steps and IMG_CG_TIMED more timed; then the card against
+# the CPU from the CLI's weights at pool 1 on IMG_CG_TWIN_CROP crops (the
+# CPU's full-width step at 256 px takes about 25 s), fill then play back;
+# then the EN tool on IMG_CG_FRAMES 2048x1024 IC frames. OrgDACS and
+# DACSImage at MiT-b5, cs2dz 512x512, batch 2; the prototype functions at
+# the b5 head's features.
+IMG_CG_FRAMES = 2
+IMG_CG_SIZE = (2048, 1024)
+IMG_CG_STEPS = 4
+IMG_CG_TIMED = 3
+IMG_CG_TWIN_CROP = 128
+IMG_CG_TWIN_STEPS = 2
+IMG_CG_POOL_TOL = 1e-4        # the pools' fakes, tanh outputs in [-1, 1]
+# the largest update of Adam(0.5, 0.999) at its first and second step, in
+# units of lr: |m_hat| / sqrt(v_hat) is g / |g| at the first; at the second
+# it peaks at 1.0540 lr (a second gradient about twice the first, same
+# sign). A parameter whose gradient is noise (a conv bias before an
+# instance norm has no gradient) may move either way on each device, so
+# after a step from one state the twins' parameters are held to 2 lr times
+# that step's largest update.
+IMG_CG_ADAM_STEPS = (1.0, 1.0540)
+IMG_ORG_STEPS = 3
+IMG_DI_STEPS = 2
+IMG_PROTO = dict(b=2, hw=128, dim=256, classes=19, memory=5000, freq=10,
+                 n_view=32)
+IMG_PROTO_TOL = 1e-5          # means, prototypes, queue rows (unit vectors)
+IMG_PROTO_LOSS_RTOL = 1e-4
+IMG_ORG_NAMES = {"cyclegan": "day2night", "ema": "ema_update",
+                 "teacher": "teacher", "mix": "classmix", "forward":
+                 "forward_src_mix", "backward": "backward", "optimizer":
+                 "adamw"}
+
+
+def _image_frames(root, n, size, seed):
+    """``n`` grayscale frames of ``size`` (w, h) under ``root``: smooth
+    waves of random periods with noise."""
+    from PIL import Image
+    g = np.random.default_rng(seed)
+    w, h = size
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    os.makedirs(root, exist_ok=True)
+    for i in range(n):
+        img = (127.0 + 60.0 * np.sin(xx / g.uniform(20, 80))
+               * np.cos(yy / g.uniform(20, 80))
+               + g.normal(0.0, 12.0, (h, w)))
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8), mode="L").save(
+            os.path.join(root, f"frame{i:02d}.png"))
+
+
+def _params_apart(nets_a, nets_b):
+    return max(float((p.detach().cpu() - q.detach().cpu()).abs().max())
+               for a, b in zip(nets_a, nets_b)
+               for p, q in zip(a.parameters(), b.parameters(), strict=True))
+
+
+def _cyclegan_part(root, tag, smi, timings):
+    """The crops tool, the CycleGAN CLI, its card-vs-CPU twin and the EN
+    tool."""
+    import copy
+    import dataclasses
+    import random
+    import torch
+    from PIL import Image
+    from cmda_tpu_torch.data.unpaired import UnpairedFolderDataset
+    from cmda_tpu_torch.tools import create_cityscapes_image_change as ic_tool
+    from cmda_tpu_torch.tools import train_cyclegan
+    from cmda_tpu_torch.uda import cyclegan_train as cg
+    from cmda_tpu_torch.utils.weights import cyclegan_to_tree
+    t0 = time.perf_counter()
+    crops = {}
+    for i, dom in enumerate("ab"):
+        _image_frames(os.path.join(root, "frames", dom), IMG_CG_FRAMES,
+                      IMG_CG_SIZE, seed=21 + i)
+        crops[dom] = os.path.join(root, "crops", dom)
+        with contextlib.redirect_stdout(io.StringIO()):
+            ic_tool.main(["--mode", "crops", "--src",
+                          os.path.join(root, "frames", dom), "--dst",
+                          crops[dom], "--crop_size", "256"])
+        names = sorted(os.listdir(crops[dom]))
+        sizes = {Image.open(os.path.join(crops[dom], n)).size for n in names}
+        if len(names) != 4 * IMG_CG_FRAMES or sizes != {(256, 256)}:
+            fail(f"{tag}: crops of domain {dom}: {len(names)} at {sizes}")
+    timings["cyclegan_data_s"] = time.perf_counter() - t0
+
+    # the CLI at the JAX CLI's defaults
+    work = os.path.join(root, "work")
+    argv = ["--data-a", crops["a"], "--data-b", crops["b"], "--work-dir",
+            work, "--steps", str(IMG_CG_STEPS), "--log-interval", "1",
+            "--sample-interval", "2", "--save-interval", str(IMG_CG_STEPS),
+            "--num-workers", "2", "--seed", "0"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        trainer, state = train_cyclegan.main(argv)
+    torch.cuda.synchronize()
+    timings["cyclegan_cli_s"] = time.perf_counter() - t0
+    last = json.loads(out.getvalue().strip().splitlines()[-1])
+    with open(os.path.join(work, "cyclegan.log.json")) as f:
+        recs = [json.loads(line) for line in f]
+    bad = [(r["iter"], k) for r in recs for k, v in r.items()
+           if not math.isfinite(v)]
+    if (last.get("done") is not True or len(recs) != IMG_CG_STEPS or bad
+            or not os.path.exists(os.path.join(work, "sample_000004.png"))):
+        fail(f"{tag}: the CycleGAN CLI: {last}, records {recs}")
+    start = trainer.init_state(0, (256, 256))
+    moved = {n: sum(int(not torch.equal(p, q)) for p, q in zip(
+        getattr(state, n).parameters(), getattr(start, n).parameters()))
+        for n in ("g_a", "g_b", "d_a", "d_b")}
+    if not all(moved.values()):
+        fail(f"{tag}: the CycleGAN CLI moved no parameter of some nets: "
+             f"{moved}")
+    npz = last["checkpoint"]
+    want = cyclegan_to_tree(state.g_a.state_dict())
+    got = cg.load_generator_npz(npz, "g_a")
+    flat_w, flat_g = {}, {}
+    for tree, flat in ((want, flat_w), (got, flat_g)):
+        stack = [("", tree)]
+        while stack:
+            pre, node = stack.pop()
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    stack.append((f"{pre}{k}/", v))
+                else:
+                    flat[pre + k] = np.asarray(v)
+    if flat_w.keys() != flat_g.keys() or not all(
+            np.array_equal(flat_w[k], flat_g[k]) for k in flat_w):
+        fail(f"{tag}: the npz's g_a differs from the CLI's final g_a")
+    n_gen = sum(p.numel() for p in state.g_a.parameters())
+    g_a_npz = copy.deepcopy(state.g_a).eval()   # the weights the npz holds
+    # the step time at the CLI's settings, on one loader batch
+    ds = UnpairedFolderDataset(crops["a"], crops["b"])
+    one = ds.load(0, random.Random(0))
+    a, b = one["a"][None], one["b"][None]
+    step_ms = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(IMG_CG_TIMED):
+        t0 = time.perf_counter()
+        trainer.train_step(state, a, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    timings["cyclegan_step_ms"] = step_ms
+    timings["cyclegan_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{tag} cyclegan: crops tool {4 * IMG_CG_FRAMES} 256 px crops a "
+          f"domain from {IMG_CG_FRAMES} {IMG_CG_SIZE[0]}x{IMG_CG_SIZE[1]} "
+          f"PNGs ({timings['cyclegan_data_s']:.1f} s); train_cyclegan.main "
+          f"{IMG_CG_STEPS} steps at ngf 64, 9 blocks, ndf 64, 3-layer "
+          f"PatchGAN, lsgan, pool 50, 286 -> 256, batch 1 in "
+          f"{timings['cyclegan_cli_s']:.1f} s, losses G "
+          + ", ".join(f"{r['loss_g']:.4f}" for r in recs) + ", D "
+          + ", ".join(f"{r['loss_d']:.4f}" for r in recs)
+          + f"; tensors moved {moved}; the npz's g_a ({n_gen} params) "
+          "equal to the final state's; step ms " + ", ".join(
+              f"{t:.2f}" for t in step_ms)
+          + f", median {statistics.median(step_ms):.2f}, peak "
+          f"{timings['cyclegan_peak_gib']:.2f} GiB ({smi})", flush=True)
+
+    # the card against the CPU from the CLI's weights at pool 1: fill, then
+    # play back (pool a) and pass through (pool b), draws handed in. Adam's
+    # first update is about +-lr for every parameter, so a gradient near 0
+    # whose sign differs moves a weight 2 lr apart, and at full width such
+    # weights move the next step's losses by ~1e-4: before each step the
+    # card's nets, Adam state and pools are set to the CPU's, so every step
+    # starts from the same state
+    crop = IMG_CG_TWIN_CROP
+    cfg1 = dataclasses.replace(trainer.cfg, pool_size=1)
+    twins = {}
+    for dev in ("cuda", "cpu"):
+        tr = cg.CycleGANTrainer(cfg1, device=dev)
+        nets = [copy.deepcopy(getattr(state, n)).to(dev)
+                for n in ("g_a", "g_b", "d_a", "d_b")]
+        twins[dev] = (tr, tr.state_from(*nets, pool=torch.zeros(
+            (1, cfg1.input_nc, crop, crop), device=dev)))
+    ds = UnpairedFolderDataset(crops["a"], crops["b"],
+                               load_size=(crop + 16, crop + 16),
+                               crop_size=(crop, crop))
+    worst, apart_all, pools_all, cpu_s = 0.0, [], [], 0.0
+    s_gpu, s_cpu = twins["cuda"][1], twins["cpu"][1]
+    for step in range(IMG_CG_TWIN_STEPS):
+        for n in ("g_a", "g_b", "d_a", "d_b", "g_opt", "d_opt"):
+            getattr(s_gpu, n).load_state_dict(getattr(s_cpu, n).state_dict())
+        for n in ("pool_a", "pool_b"):
+            getattr(s_gpu, n).copy_(getattr(s_cpu, n))
+        s_gpu.pool_n, s_gpu.step = s_cpu.pool_n, s_cpu.step
+        one = ds.load(step, random.Random(step))
+        a, b = one["a"][None], one["b"][None]
+        draws = cg.CycleGANDraws(
+            use_old_a=torch.tensor([True]), idx_a=torch.zeros(
+                1, dtype=torch.int64), use_old_b=torch.tensor([False]),
+            idx_b=torch.zeros(1, dtype=torch.int64))
+        logs, picked = {}, {}
+        for dev, (tr, st) in twins.items():
+            t0 = time.perf_counter()
+            _, lg = tr.train_step(st, a, b, draws.to(dev))
+            logs[dev] = {k: float(v) for k, v in lg.items()}
+            picked[dev] = {k: v.cpu().tolist()
+                           for k, v in tr.last_picked.items()}
+            if dev == "cpu":
+                cpu_s += time.perf_counter() - t0
+        want = ({"a": [-1], "b": [-1]} if step == 0
+                else {"a": [0], "b": [-1]})
+        if not picked["cuda"] == picked["cpu"] == want:
+            fail(f"{tag} cyclegan twin step {step}: the pool's choices "
+                 f"{picked}, expected {want}")
+        for k, r in logs["cpu"].items():
+            err = abs(logs["cuda"][k] - r) / max(abs(r), 1e-12)
+            worst = max(worst, err)
+            if not err <= TRAIN_LOSS_RTOL:
+                fail(f"{tag} cyclegan twin step {step}: {k} "
+                     f"{logs['cuda'][k]} on cuda vs {r} on cpu")
+        nets = [[getattr(st, n) for n in ("g_a", "g_b", "d_a", "d_b")]
+                for st in (s_gpu, s_cpu)]
+        apart = _params_apart(*nets)
+        # float32 cannot hold p +- lr exactly: a few ulps of the largest
+        # parameter on top
+        ulps = 8 * float(np.finfo(np.float32).eps) * max(
+            float(p.detach().abs().max()) for net in nets[1]
+            for p in net.parameters())
+        lr_bound = 2 * cfg1.lr * IMG_CG_ADAM_STEPS[step] + ulps
+        pools = max(float((getattr(s_gpu, p).cpu()
+                           - getattr(s_cpu, p)).abs().max())
+                    for p in ("pool_a", "pool_b"))
+        if not apart <= lr_bound or not pools <= IMG_CG_POOL_TOL:
+            fail(f"{tag} cyclegan twin step {step}: parameters {apart} "
+                 f"apart (bound {lr_bound}), pools {pools} apart "
+                 f"(tolerance {IMG_CG_POOL_TOL})")
+        apart_all.append(apart)
+        pools_all.append(pools)
+    timings["cyclegan_twin"] = {"loss_rel": worst, "params_apart": apart_all,
+                                "pools_apart": pools_all, "cpu_s": cpu_s}
+    print(f"{tag} cyclegan twin: {IMG_CG_TWIN_STEPS} steps at pool 1 on "
+          f"{crop} px crops from the CLI's weights, cuda vs cpu, each from "
+          f"the CPU's state: losses within {worst:.3g} (rtol "
+          f"{TRAIN_LOSS_RTOL:g}), the pool's choices equal (fill; then a "
+          f"plays back, b passes through), parameters after each step "
+          + ", ".join(f"{x:.3g}" for x in apart_all) + " apart (bounds "
+          + ", ".join(f"{2 * cfg1.lr * r:g}" for r in
+                      IMG_CG_ADAM_STEPS[:IMG_CG_TWIN_STEPS])
+          + ": 2 lr x Adam's largest update, and 8 float32 ulps of the "
+          "largest parameter), pools " + ", ".join(
+              f"{x:.3g}" for x in pools_all)
+          + f" apart (tolerance {IMG_CG_POOL_TOL:g}); the CPU took "
+          f"{cpu_s:.1f} s", flush=True)
+    del twins, nets, s_gpu, s_cpu
+
+    # the EN tool on IC frames, from the CLI's npz
+    cs_root = os.path.join(root, "cityscapes")
+    ic_dir = os.path.join(cs_root, "leftImg8bit_IC1", "train", "aachen")
+    _image_frames(ic_dir, IMG_CG_FRAMES, IMG_CG_SIZE, seed=31)
+    t0 = time.perf_counter()
+    with _deterministic_cudnn():
+        ic_tool.main(["--root_dir", cs_root, "--mode", "en", "--cyclegan",
+                      npz])
+        torch.cuda.synchronize()
+        timings["en_s"] = time.perf_counter() - t0
+        en_dir = os.path.join(cs_root, "leftImg8bit_EN1", "train", "aachen")
+        names = sorted(os.listdir(ic_dir))
+        for name in names:
+            got = np.asarray(Image.open(os.path.join(en_dir, name)))
+            with Image.open(os.path.join(ic_dir, name)) as ic:
+                ref = ic_tool.en_frame(g_a_npz, ic)
+            if got.shape != (512, 1024) or not np.array_equal(got, ref):
+                fail(f"{tag} en: {name} {got.shape} differs from the "
+                     "generator applied in-process by up to "
+                     f"{np.abs(got.astype(int) - ref).max()} levels")
+    print(f"{tag} en: --mode en with the CLI's npz on {len(names)} "
+          f"{IMG_CG_SIZE[0]}x{IMG_CG_SIZE[1]} IC frames in "
+          f"{timings['en_s']:.1f} s, each PNG equal to the trained g_a "
+          f"applied in-process ({smi})", flush=True)
+
+
+def _image_batch(cfg, n, seed, isr=False):
+    """``n`` batches of 2 synthetic source samples (labels in 64x64 squares
+    of random classes, so the feature distance has pure 32x32 cells) and
+    target images at the config's crop."""
+    from cmda_tpu_torch.data.synthetic import (SyntheticSource,
+                                               SyntheticTarget, uda_batch)
+    w, h = cfg.data.crop_size
+    src = SyntheticSource(crop_size=(w, h), with_time_res=False)
+    tgt = SyntheticTarget(crop_size=(w, h), with_events=False)
+    g = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        batch = uda_batch(src, tgt, [2 * i, 2 * i + 1])
+        k = min(TYPES_LABEL_BLOCK, h)
+        batch["source"]["label"] = np.repeat(np.repeat(g.integers(
+            0, 19, (2, h // k, w // k)), k, 1), k, 2).astype(np.int32)
+        out.append(batch)
+    return out
+
+
+def _org_cfg(cfg):
+    """OrgDACS's settings on a config: the image-only train type, no fusion
+    module, the ImageNet feature distance at TYPES_FDIST over the thing
+    classes; the pseudo weight's rows as the config crops them."""
+    from cmda_tpu_torch import config as C
+    return C.replace(cfg, model=C.replace(cfg.model, train_type="cs2dz_image",
+                                          fusion="", fusion_isr=""),
+                     uda=C.replace(cfg.uda,
+                                   imnet_feature_dist_lambda=TYPES_FDIST))
+
+
+def _seeded_mit(cfg, device):
+    """A seeded MiT state_dict of the config's backbone (NVlabs keys)."""
+    import torch
+    from cmda_tpu_torch.models.common import init_weights
+    from cmda_tpu_torch.models.mit import MIT_VARIANTS, MixVisionTransformer
+    mit = MixVisionTransformer(MIT_VARIANTS[cfg.model.backbone]).to(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    init_weights(mit, gen)
+    return mit.state_dict()
+
+
+def _org_micro(tag):
+    """One OrgDACS step of the micro config at 64x64 (the feature
+    distance, rows 2 / 15 cropped, the 3-channel day -> night generator)
+    on the card and on the CPU from one state, batch and draws: losses
+    and AdamW's first moments, as phase_train_micro holds them."""
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.uda.org_dacs import OrgDACSTrainer
+    cfg = C.micro_test_config()
+    cfg = _org_cfg(C.replace(cfg, data=C.replace(
+        cfg.data, crop_size=TRAIN_MICRO_HW), uda=C.replace(
+        cfg.uda, pseudo_weight_ignore_top=2, pseudo_weight_ignore_bottom=15)))
+    mit = _seeded_mit(cfg, "cpu")
+    cpu = OrgDACSTrainer(cfg, "cpu", use_cyclegan_day2night=True)
+    gpu = OrgDACSTrainer(cfg, "cuda", use_cyclegan_day2night=True)
+    s_cpu = cpu.init_state(seed=0, imnet_state_dict=mit)
+    s_gpu = gpu.init_state(seed=0, imnet_state_dict=mit)
+    for name in ("model", "ema_model", "cyclegan", "imnet"):
+        getattr(s_gpu, name).load_state_dict(getattr(s_cpu, name).state_dict())
+    batch = _image_batch(cfg, 1, seed=8)[0]
+    draws = cpu.new_draws(s_cpu, 2)
+    _, ref = cpu.train_step(s_cpu, batch, draws)
+    _, logs = gpu.train_step(s_gpu, batch, draws.to("cuda"))
+    logs = {k: float(v) for k, v in logs.items()}
+    loss = _check_logs(logs, ref, f"{tag} org micro, cuda vs cpu")
+    mom = _check_moments(s_gpu, s_cpu, TRAIN_MOMENT_RTOL,
+                         f"{tag} org micro, cuda vs cpu")
+    print(f"{tag} org micro: one OrgDACS step at 64x64 (feature distance, "
+          "day -> night generator, rows 2 / 15 cropped), cuda vs cpu: losses "
+          f"within {loss:.3g} (rtol {TRAIN_LOSS_RTOL:g}), AdamW first "
+          f"moments within {mom:.3g} of the largest (tolerance "
+          f"{TRAIN_MOMENT_RTOL:g}); feature distance "
+          f"{logs['src/loss_imnet_feat_dist']:.5f}", flush=True)
+    return {"loss_rel": loss, "moments_rel": mom}
+
+
+def _org_b5(tag, smi, timings):
+    """OrgDACS at MiT-b5, cs2dz 512x512, batch 2: IMG_ORG_STEPS steps
+    (finite logs, parameters move, the EMA teacher after step 0 is the
+    pre-update student), their times, one step's CUDA-event sections and
+    the peak memory."""
+    import torch
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.uda.org_dacs import OrgDACSTrainer
+    cfg = _org_cfg(C.cs2dz_image_rawisr_b5())
+    t0 = time.perf_counter()
+    trainer = OrgDACSTrainer(cfg, "cuda", use_cyclegan_day2night=True)
+    state = trainer.init_state(seed=0, imnet_state_dict=_seeded_mit(
+        cfg, "cuda"))
+    batches = _image_batch(cfg, IMG_ORG_STEPS + 1, seed=9)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    student0 = [p.detach().clone() for p in state.model.parameters()]
+    step_ms, records = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(IMG_ORG_STEPS):
+        t0 = time.perf_counter()
+        _, logs = trainer.train_step(state, batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        logs = {k: float(v) for k, v in logs.items()}
+        records.append(logs)
+        if not all(math.isfinite(v) for v in logs.values()):
+            fail(f"{tag} org b5 step {i}: logs {logs}")
+        if i == 0 and not all(torch.equal(e, p) for e, p in zip(
+                state.ema_model.parameters(), student0)):
+            fail(f"{tag} org b5: after step 0 the EMA teacher is not the "
+                 "pre-update student")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = sum(int(not torch.equal(p, q)) for p, q in
+                zip(state.model.parameters(), student0))
+    if not moved or not records[-1]["src/loss_imnet_feat_dist"] > 0:
+        fail(f"{tag} org b5: {moved} tensors moved, logs {records[-1]}")
+    del student0
+    trainer.marks = []
+    trainer.train_step(state, batches[-1])
+    torch.cuda.synchronize()
+    marks, trainer.marks = trainer.marks, None
+    sections = {IMG_ORG_NAMES[n]: a.elapsed_time(e)
+                for (_, a, _, _), (n, e, _, _) in zip(marks, marks[1:])}
+    med = statistics.median(step_ms)
+    timings["org_b5"] = {"build_s": build_s, "step_ms": step_ms,
+                         "step_ms_median": med, "peak_gib": peak,
+                         "sections_ms": sections, "logs": records}
+    print(f"{tag} org b5: OrgDACS MiT-b5 cs2dz 512x512 batch 2 (feature "
+          f"distance {TYPES_FDIST}, rows 15 / 120 cropped, a random 3-channel"
+          f" ngf-64 9-block day -> night generator), built in {build_s:.1f} "
+          f"s; {IMG_ORG_STEPS} steps: loss " + ", ".join(
+              f"{r['loss']:.5f}" for r in records) + ", feature distance "
+          + ", ".join(f"{r['src/loss_imnet_feat_dist']:.5f}" for r in records)
+          + f", pseudo_weight {records[-1]['pseudo_weight']:.5f}; {moved} "
+          f"parameter tensors moved; EMA teacher after step 0 == the "
+          f"pre-update student; step ms " + ", ".join(
+              f"{t:.2f}" for t in step_ms) + f", median {med:.2f}; peak "
+          f"{peak:.2f} GiB; one step's device ms " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sections.items()) + f" ({smi})",
+          flush=True)
+    return state
+
+
+def _dacs_image_b5(tag, smi, timings):
+    """DACSImage with isrd2isrn (a random 1-channel generator) at MiT-b5,
+    512x512, batch 2: IMG_DI_STEPS steps, finite, parameters moving."""
+    import torch
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.uda.dacs_image import DACSImageTrainer
+    cfg = _org_cfg(C.cs2dz_image_rawisr_b5())
+    t0 = time.perf_counter()
+    trainer = DACSImageTrainer(cfg, "cuda", transfer_direction="isrd2isrn")
+    state = trainer.init_state(seed=0)
+    batches = _image_batch(cfg, IMG_DI_STEPS, seed=10)
+    build_s = time.perf_counter() - t0
+    student0 = [p.detach().clone() for p in state.model.parameters()]
+    step_ms, records = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(IMG_DI_STEPS):
+        t0 = time.perf_counter()
+        _, logs = trainer.train_step(state, batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        records.append({k: float(v) for k, v in logs.items()})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = sum(int(not torch.equal(p, q)) for p, q in
+                zip(state.model.parameters(), student0))
+    if not moved or not all(math.isfinite(v) for r in records
+                            for v in r.values()):
+        fail(f"{tag} dacs_image b5: {moved} tensors moved, logs {records}")
+    timings["dacs_image_b5"] = {"build_s": build_s, "step_ms": step_ms,
+                                "peak_gib": peak, "logs": records}
+    print(f"{tag} dacs_image b5: DACSImage isrd2isrn (random 1-channel "
+          f"ngf-64 9-block generator) MiT-b5 512x512 batch 2, built in "
+          f"{build_s:.1f} s; {IMG_DI_STEPS} steps: loss " + ", ".join(
+              f"{r['loss']:.5f}" for r in records) + f"; {moved} parameter "
+          "tensors moved; step ms " + ", ".join(f"{t:.2f}" for t in step_ms)
+          + f"; peak {peak:.2f} GiB ({smi})", flush=True)
+
+
+def _prototype_part(tag, smi, timings):
+    """The prototype functions at the b5 head's features, on the card and
+    on the CPU with the same inputs and random scores, each timed on the
+    card."""
+    import torch
+    from cmda_tpu_torch.uda import prototype as P
+    p = IMG_PROTO
+    b, hw, d, k = p["b"], p["hw"], p["dim"], p["classes"]
+    g = torch.Generator().manual_seed(5)
+    feats = torch.randn((b, hw, hw, d), generator=g)
+    logits = torch.randn((b, hw, hw, k), generator=g)
+    labels = torch.randint(0, k, (b, 4 * hw, 4 * hw), generator=g,
+                           dtype=torch.int32)
+    labels[:, :16] = 255
+    noise = tuple(torch.randn((k, p["memory"], d), generator=g)
+                  for _ in range(2))
+    s_enq = torch.rand((b, hw * hw), generator=g)
+    s_pcl = torch.rand((b, k, hw * hw), generator=g)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        f, z, lbl = feats.to(dev), logits.to(dev), labels.to(dev)
+        means, valid = P.class_mean_features(f, z, lbl[:, ::4, ::4],
+                                             num_classes=k)
+        bank = P.update_prototypes(P.PrototypeBank.create(k, d, dev), means,
+                                   valid)
+        q = P.ContrastQueues.create(tuple(n.to(dev) for n in noise))
+        q = P.enqueue(q, f, lbl, s_enq.to(dev),
+                      pixel_update_freq=p["freq"])
+        loss = P.pixel_contrast_loss(s_pcl.to(dev), f, lbl, z.argmax(-1),
+                                     q.pixel_queue, n_view=p["n_view"],
+                                     num_classes=k)
+        out[dev] = {"means": means.cpu(), "valid": valid.cpu(),
+                    "protos": bank.protos.cpu(), "counts": bank.counts.cpu(),
+                    "segment_queue": q.segment_queue.cpu(),
+                    "pixel_queue": q.pixel_queue.cpu(),
+                    "segment_ptr": q.segment_ptr.cpu(),
+                    "pixel_ptr": q.pixel_ptr.cpu(), "loss": float(loss)}
+        out[dev]["s"] = time.perf_counter() - t0
+    c, r = out["cuda"], out["cpu"]
+    errs = {n: float((c[n] - r[n]).abs().max()) / max(
+        float(r[n].abs().max()), 1e-30) for n in
+        ("means", "protos", "segment_queue", "pixel_queue")}
+    loss_rel = abs(c["loss"] - r["loss"]) / abs(r["loss"])
+    same = all(torch.equal(c[n], r[n]) for n in
+               ("valid", "counts", "segment_ptr", "pixel_ptr"))
+    if (not same or any(not e <= IMG_PROTO_TOL for e in errs.values())
+            or not loss_rel <= IMG_PROTO_LOSS_RTOL):
+        fail(f"{tag} prototype: cuda vs cpu {errs}, loss {c['loss']} vs "
+             f"{r['loss']}, masks and pointers equal {same}")
+    dev = "cuda"
+    f, z, lbl = feats.to(dev), logits.to(dev), labels.to(dev)
+    means, valid = P.class_mean_features(f, z, lbl[:, ::4, ::4],
+                                         num_classes=k)
+    q = P.ContrastQueues.create(tuple(n.to(dev) for n in noise))
+    s_enq, s_pcl, pred = s_enq.to(dev), s_pcl.to(dev), z.argmax(-1)
+    ms = {
+        "class_mean_features": cuda_ms(lambda: P.class_mean_features(
+            f, z, lbl[:, ::4, ::4], num_classes=k), 1, 5),
+        "update_prototypes": cuda_ms(lambda: P.update_prototypes(
+            P.PrototypeBank.create(k, d, dev), means, valid), 1, 5),
+        "enqueue": cuda_ms(lambda: P.enqueue(q, f, lbl, s_enq,
+                                             pixel_update_freq=p["freq"]),
+                           1, 5),
+        "pixel_contrast_loss": cuda_ms(lambda: P.pixel_contrast_loss(
+            s_pcl, f, lbl, pred, q.pixel_queue, n_view=p["n_view"],
+            num_classes=k), 1, 5)}
+    timings["prototype"] = {"cuda_vs_cpu": errs, "loss_rel": loss_rel,
+                            "ms": ms, "cpu_s": r["s"], "loss": c["loss"]}
+    print(f"{tag} prototype: features [{b},{hw},{hw},{d}], {k} classes, "
+          f"memory {p['memory']}, pixel_update_freq {p['freq']}, n_view "
+          f"{p['n_view']}: cuda vs cpu " + ", ".join(
+              f"{n} {e:.3g}" for n, e in errs.items())
+          + f" of the largest (tolerance {IMG_PROTO_TOL:g}), loss "
+          f"{c['loss']:.6f} within {loss_rel:.3g} (rtol "
+          f"{IMG_PROTO_LOSS_RTOL:g}), valid classes, counts and pointers "
+          "equal; ms on the card " + ", ".join(
+              f"{n} {t:.3f}" for n, t in ms.items())
+          + f" (the CPU's pass {r['s']:.1f} s) ({smi})", flush=True)
+
+
+def phase_image_trainers():
+    """The CycleGAN workflow and the image-only trainers at full width:
+    ``create_cityscapes_image_change --mode crops``, ``train_cyclegan.main``
+    in-process at the JAX CLI's defaults (its log, samples and npz), the
+    CycleGAN step on the card against the CPU at pool 1 (fill, then play
+    back), ``--mode en`` from the CLI's npz against the generator applied
+    in-process; OrgDACS at MiT-b5 (cs2dz 512x512 batch 2, the feature
+    distance, the rows cropped, a random day -> night generator) and its
+    micro step on the card against the CPU; DACSImage with isrd2isrn at
+    MiT-b5; the prototype functions at the b5 head's features on the card
+    against the CPU. None of the port's kernels is on these paths: the
+    launch counters are set to 0 at the start and must read 0 at the end.
+    Returns those counts."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag, smi = "image_trainers", smi_line()
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    timings = {}
+    with tempfile.TemporaryDirectory(prefix="cg_") as root:
+        _cyclegan_part(root, tag, smi, timings)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timings["org_micro"] = _org_micro(tag)
+    _org_b5(tag, smi, timings)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _dacs_image_b5(tag, smi, timings)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _prototype_part(tag, smi, timings)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if any(launches.values()):
+        fail(f"{tag}: the phase launched port kernels {launches}; none is "
+             "on these paths")
+    timings["phase_s"] = time.perf_counter() - t_phase
+    print(f"{tag}: launches {launches}; phase {timings['phase_s']:.1f} s "
+          f"({smi})", flush=True)
+    print(f"{tag} timings " + json.dumps(timings, default=float), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def device_time_only(root):
     """``--device-time ROOT``: build the kernels of the checkout at ROOT
     (another commit unpacked beside this one, say) and print one JSON line
@@ -3857,7 +4456,7 @@ def phases_only(names):
     """``--phases``: build the kernels and run the named phases alone."""
     import torch
     from cmda_tpu_torch.ops import _build
-    unknown = set(names) - {"isr", "ce", "train_types"}
+    unknown = set(names) - {"isr", "ce", "train_types", "image_trainers"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
     print(smi_line(), flush=True)
@@ -3875,6 +4474,9 @@ def phases_only(names):
     if "train_types" in names:
         phase_train(preset="cs2dz")
         print(json.dumps({"train_types": phase_train_types()}), flush=True)
+    if "image_trainers" in names:
+        print(json.dumps({"image_trainers": phase_image_trainers()}),
+              flush=True)
 
 
 def main():
@@ -3976,6 +4578,8 @@ def main():
     elapsed("phase_uda_options")
     types_launches = phase_train_types()
     elapsed("phase_train_types")
+    image_launches = phase_image_trainers()
+    elapsed("phase_image_trainers")
     for r in results:
         # the serving kernels keep their serving-path count under
         # "launches"; the training path's count goes beside it, and the
@@ -3997,6 +4601,7 @@ def main():
         r["launches_uda_options"] = uda_launches[r["name"]]
         r["launches_uda_levers"] = lever_launches[r["name"]]
         r["launches_train_types"] = types_launches[r["name"]]
+        r["launches_image_trainers"] = image_launches[r["name"]]
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi, flush=True)

@@ -153,15 +153,21 @@ class Classifier(nn.Conv2d):
 class DAFormerHead(DAFormerDecoder):
     """Single-stream DAFormer head (the reference ``DAFormerHead``: keys
     ``embed_layers.{i}.proj``, ``fuse_layer``, ``conv_seg``) -> stride-4
-    logits [B, C, h, w], in eval mode: ``EncoderDecoder``'s head."""
+    logits [B, C, h, w]: ``EncoderDecoder``'s head. ``train`` turns on the
+    Dropout2d with the keep-masks ``dropout_keep`` [B, C] and BatchNorm on
+    batch statistics, which move the running statistics."""
 
     def __init__(self, cfg: DAFormerHeadConfig):
         super().__init__(cfg)
         self.conv_seg = Classifier(cfg.channels, cfg.num_classes,
                                    cfg.dropout_ratio)
 
-    def forward(self, feats):
-        return self.conv_seg(self.decode(feats))
+    def forward(self, feats, train: bool = False,
+                dropout_keep: torch.Tensor | None = None):
+        if train and self.conv_seg.dropout_ratio > 0 and dropout_keep is None:
+            raise ValueError("train=True needs the Dropout2d keep-masks")
+        return self.conv_seg(self.decode(feats, train),
+                             dropout_keep if train else None)
 
 
 class DAFormerFusionHead(DAFormerDecoder):

@@ -29,7 +29,8 @@ uniforms, which the JAX forward draws from the module's own key, so one
 
 ``EncoderDecoder`` is the single-backbone segmentor (one MiT, the
 single-stream DAFormer head): the frozen ImageNet encoder of the feature
-distance.
+distance, and the model of the image-only trainers (OrgDACS, DACSImage),
+with a training forward of its own.
 """
 from __future__ import annotations
 
@@ -272,8 +273,14 @@ class FusionEncoderDecoder(nn.Module):
 class EncoderDecoder(nn.Module):
     """Single-backbone segmentor (mirrors cmda_tpu.models.segmentor.
     EncoderDecoder): ``backbone`` (MiT) and ``decode_head``
-    (``DAFormerHead``), in eval mode: no drop-path, no dropout, BatchNorm on
-    running statistics."""
+    (``DAFormerHead``). ``forward`` and ``extract_feat`` are eval mode (no
+    drop-path, no dropout, BatchNorm on running statistics): the frozen
+    ImageNet encoder of the feature distance and the OrgDACS teacher.
+    ``forward_with_features(train=True, draws=...)`` is the training
+    forward of OrgDACS and DACSImage: the drop-path uniforms and the
+    classifier's Dropout2d keep-masks of a ``ForwardDraws`` (``image``
+    [depth_s, 2, B] per stage, ``dropout_keep`` [1, B, C]), BatchNorm on
+    batch statistics that move the running statistics."""
 
     def __init__(self, cfg: SegmentorConfig = SegmentorConfig(),
                  dtype: str = "float32"):
@@ -286,14 +293,39 @@ class EncoderDecoder(nn.Module):
         self.backbone = MixVisionTransformer(mit_cfg, remat=cfg.remat)
         self.decode_head = DAFormerHead(cfg.head)
 
-    def extract_feat(self, img):
-        """NHWC image -> the backbone's four NCHW feature maps (eval)."""
-        return self.backbone(_nchw(img, self.dtype))
+    def new_draws(self, batch: int, *, generator: torch.Generator,
+                  device: torch.device) -> ForwardDraws:
+        """Fresh ``ForwardDraws`` of a training forward at ``batch``, drawn
+        from ``generator`` on ``device``."""
+        def uniform(*shape):
+            return torch.rand(shape, generator=generator, device=device)
+        cls = self.decode_head.conv_seg
+        return ForwardDraws(
+            image=[uniform(d, 2, batch) for d in self.backbone.cfg.depths],
+            dropout_keep=uniform(1, batch, cls.in_channels)
+            < 1.0 - cls.dropout_ratio)
+
+    def extract_feat(self, img, draws: ForwardDraws | None = None):
+        """NHWC image -> the backbone's four NCHW feature maps (eval, or
+        with ``draws``' drop-path uniforms)."""
+        return self.backbone(_nchw(img, self.dtype),
+                             draws.image if draws is not None else None)
+
+    def forward_with_features(self, img, train: bool = False,
+                              draws: ForwardDraws | None = None):
+        """NHWC image -> (NHWC float32 logits at the input size, the NCHW
+        feature maps). ``train`` needs ``draws``."""
+        if train and draws is None:
+            raise ValueError("train=True needs the forward's draws")
+        feats = self.extract_feat(img, draws if train else None)
+        keep = draws.dropout_keep[0] if train else None
+        logits = self.decode_head(feats, train, keep)
+        return (resize_bilinear(logits.permute(0, 2, 3, 1), img.shape[1:3]),
+                feats)
 
     def forward(self, img):
-        """NHWC image -> NHWC float32 logits at the input size."""
-        logits = self.decode_head(self.extract_feat(img))
-        return resize_bilinear(logits.permute(0, 2, 3, 1), img.shape[1:3])
+        """NHWC image -> NHWC float32 logits at the input size (eval)."""
+        return self.forward_with_features(img)[0]
 
 
 def multi_scale_flip_inference(apply_fn, img, *, scales=(1.0,),

@@ -15,6 +15,7 @@ numbers):
   kernel-size rule and a tensor sigma.
 * ``add_noise_on_isr``: the mixed ISR's blur, dropout and speckle
   (``uda.isr_noise_dacs_type``), its draws an ``IsrNoiseDraws``.
+* ``cow_masks``: the CowMix smooth-noise threshold masks on the device.
 
 Images are NHWC.
 """
@@ -248,3 +249,36 @@ def add_noise_on_isr(isr: torch.Tensor, draws: IsrNoiseDraws,
         out = out + draws.noise * draws.intensity * rnd_mask
         out = out.clamp(-1.0, 1.0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Cow masks (reference mmseg/datasets/utils.py:171-200)
+# ---------------------------------------------------------------------------
+
+
+def cow_masks(p: torch.Tensor, sigmas: torch.Tensor, noise: torch.Tensor,
+              max_sigma: int = 16) -> torch.Tensor:
+    """Smooth-noise threshold masks [B, H, W] bool (mirrors
+    cmda_tpu.ops.augment.cow_masks, its draws handed in): ``noise``
+    [B, H, W, 1] N(0, 1) smoothed by a reflect-padded separable Gaussian of
+    each sample's ``sigmas`` [B] (a 2 * (3 * max_sigma) * 2 + 1 tap kernel,
+    along W then H), then kept at or below its mean + erfinv(2 p - 1)
+    sqrt(2) std (``p`` [B] the mask's share; the std with ddof 1). The JAX
+    function draws p ~ U[0.25, 1), log(sigmas) ~ U[log 4, log 16) and the
+    noise."""
+    b, h, w, _ = noise.shape
+    threshold_factors = torch.erfinv(2 * p - 1) * math.sqrt(2.0)
+    size = round(max_sigma * 3) * 2 + 1
+    xs = torch.arange(-size, size + 1, dtype=torch.float32,
+                      device=noise.device)
+    kernels = torch.exp(-0.5 * xs[None, :] ** 2 / sigmas[:, None] ** 2)
+    kernels = kernels / (sigmas[:, None] * math.sqrt(2 * math.pi))
+    pad = (kernels.shape[1] - 1) // 2
+    # one group per sample: [1, B, H, W] against [B, 1, 1, k] / [B, 1, k, 1]
+    x = F.pad(noise[..., 0][None], (pad, pad, 0, 0), mode="reflect")
+    x = F.conv2d(x, kernels[:, None, None, :], groups=b)
+    x = F.pad(x, (0, 0, pad, pad), mode="reflect")
+    smooth = F.conv2d(x, kernels[:, None, :, None], groups=b)[0]
+    mean = smooth.mean(dim=(1, 2), keepdim=True)
+    std = smooth.std(dim=(1, 2), keepdim=True, correction=1)
+    return smooth <= threshold_factors[:, None, None] * std + mean

@@ -13,7 +13,7 @@ JAX package).
         --device cpu --max-iters 2 [--dtype bfloat16]
     python -m cmda_tpu_torch.tools.train --config cs2dsec --synthetic \\
         --work-dir work_dirs/b5 --pretrained-backbone mit_b5.pth \\
-        --cyclegan cityscapes_ICD_to_dsec_EN.pth
+        --cyclegan cityscapes_ICD_to_dsec_EN.pth   # or cyclegan_final.npz
     python -m cmda_tpu_torch.tools.train --config cs2dz --synthetic \\
         --work-dir work_dirs/dz [--teacher-bf16] [--set uda.alpha=0.99]
     python -m cmda_tpu_torch.tools.train --config cs2dz \\
@@ -61,7 +61,9 @@ from ..data.synthetic import SyntheticSource, SyntheticTarget
 from ..data.uda import UDAPairDataset
 from ..ops.resize import set_fused_int_upsample
 from ..train.loop import TrainLoop, load_checkpoint
-from ..utils.weights import (load_pretrained_backbone, load_torch_file,
+from ..uda.cyclegan_train import load_generator_npz
+from ..utils.weights import (cyclegan_to_state_dict,
+                             load_pretrained_backbone, load_torch_file,
                              strip_prefix)
 
 # the JAX CLI's flags that lead to code the port does not have, by ROADMAP
@@ -448,7 +450,8 @@ def build_datasets(cfg: C.RunConfig, args):
 
 def init_state(trainer, cfg: C.RunConfig, args):
     """The initial train state: the CycleGAN from ``--cyclegan`` (a
-    DataParallel ``module.`` prefix stripped), the MiT weights of
+    reference ``.pth``, a DataParallel ``module.`` prefix stripped, or a
+    CycleGAN trainer's ``.npz``, its ``g_a``), the MiT weights of
     ``--pretrained-backbone`` in both encoders and the teacher a copy of
     the student; random from the config's seed otherwise. With the
     ImageNet feature distance (``uda.imnet_feature_dist_lambda`` > 0) the
@@ -457,11 +460,13 @@ def init_state(trainer, cfg: C.RunConfig, args):
     cyclegan = None
     if args.cyclegan:
         if args.cyclegan.endswith(".npz"):
-            raise NotImplementedError("the JAX CycleGAN trainer's .npz "
-                                      "generators are not ported (ROADMAP "
-                                      "queue A item 5)")
-        cyclegan = strip_prefix(load_torch_file(args.cyclegan),
-                                prefixes=("module.",))
+            # a CycleGAN trainer's checkpoint (either package's): its A -> B
+            # generator
+            cyclegan = cyclegan_to_state_dict(
+                load_generator_npz(args.cyclegan, "g_a"))
+        else:
+            cyclegan = strip_prefix(load_torch_file(args.cyclegan),
+                                    prefixes=("module.",))
     imnet_src = args.imnet or args.pretrained_backbone
     imnet = (load_torch_file(imnet_src)
              if imnet_src and cfg.uda.imnet_feature_dist_lambda > 0 else None)

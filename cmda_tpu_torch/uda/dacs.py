@@ -140,7 +140,6 @@ from __future__ import annotations
 import copy
 from dataclasses import dataclass, field
 
-import numpy as np
 import torch
 
 from ..apis import build_model, resolve_device
@@ -148,8 +147,7 @@ from ..config import RunConfig
 from ..data.loader import host_tensor
 from ..data.wire import decode_wire
 from ..models.common import Conv2d, Linear
-from ..models.cyclegan import (ResnetGenerator, generator_from_params,
-                               init_generator)
+from ..models.cyclegan import ResnetGenerator, frozen_generator
 from ..models.common import init_weights
 from ..models.segmentor import (EncoderDecoder, FusionEncoderDecoder,
                                 ForwardDraws)
@@ -333,26 +331,11 @@ class DACSTrainer:
         ema = copy.deepcopy(model).requires_grad_(False)
         cyclegan = None
         if self.has_events and cfg.uda.use_cyclegan_day_events:
-            with torch.device(self.device):
-                if cyclegan_state_dict is not None:
-                    cyclegan = generator_from_params(cyclegan_state_dict)
-                    cyclegan.load_state_dict({
-                        k: torch.as_tensor(np.asarray(v))
-                        for k, v in cyclegan_state_dict.items()})
-                else:
-                    gen = torch.Generator(device=self.device)
-                    gen.manual_seed(seed + 1)
-                    cyclegan = init_generator(ResnetGenerator(), gen)
-            cyclegan = cyclegan.eval().requires_grad_(False)
+            cyclegan = frozen_generator(cyclegan_state_dict,
+                                        device=self.device, seed=seed + 1)
         imnet = None
         if self.enable_fdist and imnet_state_dict is not None:
-            with torch.device(self.device):
-                imnet = EncoderDecoder(cfg.model, dtype=cfg.dtype)
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed + 2)
-            init_weights(imnet, gen)
-            load_pretrained_backbone(imnet.backbone, imnet_state_dict)
-            imnet = imnet.eval().requires_grad_(False)
+            imnet = frozen_imnet(cfg, self.device, seed, imnet_state_dict)
         return DACSTrainState(model=model, ema_model=ema,
                               optimizer=make_optimizer(model, cfg.optim),
                               cyclegan=cyclegan,
@@ -438,18 +421,6 @@ class DACSTrainer:
             a, b = (float(s) for s in rc.split("-"))
             return a + (b - a) * (step / self.cfg.optim.max_iters)
         return float(rc)
-
-    @torch.no_grad()
-    def _ema_update(self, teacher, student, step: int):
-        """teacher <- alpha * teacher + (1 - alpha) * student (parameters,
-        in place), alpha = min(1 - 1/(step+1), uda.alpha) in float32."""
-        t = torch.tensor(float(step), dtype=torch.float32)
-        alpha_t = torch.clamp(1.0 - 1.0 / (t + 1.0), max=self.cfg.uda.alpha)
-        alpha, beta = float(alpha_t), float(1.0 - alpha_t)
-        ema = list(teacher.parameters())
-        params = [p.detach() for p in student.parameters()]
-        torch._foreach_mul_(ema, alpha)
-        torch._foreach_add_(ema, params, alpha=beta)
 
     @staticmethod
     def _gray(mixed_img):
@@ -538,7 +509,7 @@ class DACSTrainer:
         # the one host read of the coin, where it picks the step's graph
         events_graph = bool(use_events) if self.coin_graph else None
 
-        self._ema_update(ema_model, state.model, state.step)
+        ema_update(ema_model, state.model, state.step, u.alpha)
         if teacher is not None:
             _refresh_teacher(teacher, ema_model)
         self._mark("ema")
@@ -730,31 +701,6 @@ class DACSTrainer:
             factor=2.0 if self.split else 1.0,
             events_class_weight=self.edge_cw)
 
-    def _fdist_loss(self, state: DACSTrainState, f_image, day_image,
-                    day_label) -> torch.Tensor:
-        """The ImageNet feature distance on the thing classes
-        (cmda_tpu/uda/dacs.py:243-258): lambda x ``masked_feat_dist`` of the
-        student's last image feature map [B, C, h, w] against the frozen
-        encoder's, over the cells whose 32x-downscaled source label is one
-        of ``uda.imnet_feature_dist_classes``."""
-        u = self.cfg.uda
-        if state.imnet is None:
-            raise ValueError(
-                "uda.imnet_feature_dist_lambda > 0 needs the frozen ImageNet "
-                "encoder's weights: pass init_state(imnet_state_dict=...) "
-                "(the train CLI's --imnet, or --pretrained-backbone)")
-        with torch.no_grad():
-            f_imnet = state.imnet.extract_feat(day_image)[-1]
-        scale = day_label.shape[-1] // f_imnet.shape[-1]
-        gt_small = downscale_label_ratio(
-            day_label, scale, u.imnet_feature_dist_scale_min_ratio,
-            self.cfg.data.num_classes)
-        mask = torch.isin(gt_small, torch.tensor(
-            list(u.imnet_feature_dist_classes), dtype=gt_small.dtype,
-            device=gt_small.device))
-        return u.imnet_feature_dist_lambda * masked_feat_dist(
-            f_image[-1], f_imnet, mask)
-
     @staticmethod
     def _batch_hw(batch: dict):
         """(B, (H, W)) of the batch's source images."""
@@ -810,8 +756,9 @@ class DACSTrainer:
         logits, feats = model.forward_train(*src_in, mode, draws.fwd)
         loss_src, logs_src = self._stream_losses(logits, P, False, weights)
         if self.enable_fdist:
-            fd = self._fdist_loss(state, feats["f_image"], P["day_image"],
-                                  P["day_label"])
+            fd = imnet_feature_distance(self.cfg, state.imnet,
+                                        feats["f_image"][-1], P["day_image"],
+                                        P["day_label"])
             logs_src["loss_imnet_feat_dist"] = fd.detach()
             loss_src = loss_src + fd
         self._mark("src_fwd")
@@ -855,6 +802,61 @@ class DACSTrainer:
                 "pseudo_weight": P["pseudo_weight"].mean(),
                 "use_events": P["use_events"].float()}
         return state, logs
+
+
+def frozen_imnet(cfg: RunConfig, device, seed: int,
+                 imnet_state_dict: dict) -> EncoderDecoder:
+    """The frozen ImageNet ``EncoderDecoder`` of the feature distance: its
+    backbone from ``imnet_state_dict`` (an NVlabs ``mit_bX.pth``
+    state_dict), its head (which the distance does not read) random from
+    ``seed + 2``; eval mode, no gradients."""
+    with torch.device(device):
+        imnet = EncoderDecoder(cfg.model, dtype=cfg.dtype)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 2)
+    init_weights(imnet, gen)
+    load_pretrained_backbone(imnet.backbone, imnet_state_dict)
+    return imnet.eval().requires_grad_(False)
+
+
+@torch.no_grad()
+def ema_update(teacher, student, step: int, alpha_max: float):
+    """teacher <- alpha * teacher + (1 - alpha) * student (parameters, in
+    place), alpha = min(1 - 1/(step+1), alpha_max) in float32."""
+    t = torch.tensor(float(step), dtype=torch.float32)
+    alpha_t = torch.clamp(1.0 - 1.0 / (t + 1.0), max=alpha_max)
+    alpha, beta = float(alpha_t), float(1.0 - alpha_t)
+    ema = list(teacher.parameters())
+    params = [p.detach() for p in student.parameters()]
+    torch._foreach_mul_(ema, alpha)
+    torch._foreach_add_(ema, params, alpha=beta)
+
+
+def imnet_feature_distance(cfg: RunConfig, imnet, f_last: torch.Tensor,
+                           day_image, day_label) -> torch.Tensor:
+    """The ImageNet feature distance on the thing classes
+    (cmda_tpu/uda/dacs.py:243-258, org_dacs.py:136-148): lambda x
+    ``masked_feat_dist`` of the student's last feature map ``f_last``
+    [B, C, h, w] against the frozen encoder ``imnet``'s on ``day_image``,
+    over the cells whose 32x-downscaled source label is one of
+    ``uda.imnet_feature_dist_classes``."""
+    u = cfg.uda
+    if imnet is None:
+        raise ValueError(
+            "uda.imnet_feature_dist_lambda > 0 needs the frozen ImageNet "
+            "encoder's weights: pass init_state(imnet_state_dict=...) "
+            "(the train CLI's --imnet, or --pretrained-backbone)")
+    with torch.no_grad():
+        f_imnet = imnet.extract_feat(day_image)[-1]
+    scale = day_label.shape[-1] // f_imnet.shape[-1]
+    gt_small = downscale_label_ratio(
+        day_label, scale, u.imnet_feature_dist_scale_min_ratio,
+        cfg.data.num_classes)
+    mask = torch.isin(gt_small, torch.tensor(
+        list(u.imnet_feature_dist_classes), dtype=gt_small.dtype,
+        device=gt_small.device))
+    return u.imnet_feature_dist_lambda * masked_feat_dist(f_last, f_imnet,
+                                                          mask)
 
 
 def _require(target: dict, keys, what: str):

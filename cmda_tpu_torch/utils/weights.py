@@ -10,6 +10,10 @@
       Depthwise   [k, k, 1, C]    -> Conv2d weight [C, 1, k, k]
   Every model key must be filled and every tree leaf used, at the right
   shape; anything else raises.
+* ``cyclegan_to_state_dict`` / ``discriminator_to_state_dict`` and their
+  inverses: the JAX CycleGAN generator's and discriminators' flax trees
+  (``conv_in`` .. ``conv_out``; ``conv0`` .. ``conv_out``) <-> the reference
+  pix2pix ``nn.Sequential`` keys, HWIO <-> OIHW.
 * ``strip_prefix`` / ``load_reference_state_dict``: a reference
   ``iter_40000.pth`` state_dict (keys ``module.model.*`` /``model.*``) into
   the port's FusionEncoderDecoder.
@@ -335,6 +339,45 @@ def cyclegan_to_tree(sd: dict) -> dict:
             node = node.setdefault(seg, {})
         node["kernel"] = _to_jax_layout("kernel", _numpy(sd[f"{prefix}.weight"]))
         node["bias"] = _numpy(sd[f"{prefix}.bias"])
+    return out
+
+
+def _discriminator_keys(n_convs: int, pixel: bool) -> dict[tuple, str]:
+    """flax module of the JAX NLayerDiscriminator (``conv0`` ..
+    ``conv{n_convs - 2}``, ``conv_out``) or PixelDiscriminator (``conv0``,
+    ``conv1``, ``conv_out``) -> reference key prefix: ``model.{0, 2, 5,
+    ...}`` or ``net.{0, 2, 5}``."""
+    if pixel:
+        return {("conv0",): "net.0", ("conv1",): "net.2",
+                ("conv_out",): "net.5"}
+    out = {(f"conv{i}",): f"model.{0 if i == 0 else 3 * i - 1}"
+           for i in range(n_convs - 1)}
+    out[("conv_out",)] = f"model.{3 * (n_convs - 1) - 1}"
+    return out
+
+
+def discriminator_to_state_dict(params) -> dict[str, np.ndarray]:
+    """JAX NLayerDiscriminator / PixelDiscriminator params -> the reference
+    state_dict (kernels HWIO -> OIHW); the pixel one is told by its 1x1
+    kernels."""
+    pixel = np.shape(params["conv0"]["kernel"])[0] == 1
+    keys = _discriminator_keys(len(params), pixel)
+    out = {}
+    for path, arr in _walk(params):
+        out[f"{keys[path[:-1]]}.{_LEAF[path[-1]]}"] = _to_torch_layout(
+            path[-1], arr)
+    return out
+
+
+def discriminator_to_tree(sd: dict) -> dict:
+    """The inverse of ``discriminator_to_state_dict``."""
+    pixel = any(k.startswith("net.") for k in sd)
+    n_convs = sum(1 for k in sd if k.endswith(".weight"))
+    out = {}
+    for (name,), prefix in _discriminator_keys(n_convs, pixel).items():
+        out[name] = {
+            "kernel": _to_jax_layout("kernel", _numpy(sd[f"{prefix}.weight"])),
+            "bias": _numpy(sd[f"{prefix}.bias"])}
     return out
 
 

@@ -46,7 +46,14 @@ def test_import_loads_no_jax_and_no_cmda_tpu():
     assert {"cmda_tpu_torch.apis", "cmda_tpu_torch.data.dsec",
             "cmda_tpu_torch.data.cityscapes_ic", "cmda_tpu_torch.data.h5",
             "cmda_tpu_torch.data.source_augs",
-            "cmda_tpu_torch.tools.make_fake_corpus"} <= set(loaded)
+            "cmda_tpu_torch.tools.make_fake_corpus",
+            "cmda_tpu_torch.data.unpaired", "cmda_tpu_torch.utils.misc",
+            "cmda_tpu_torch.uda.cyclegan_train",
+            "cmda_tpu_torch.uda.org_dacs", "cmda_tpu_torch.uda.dacs_image",
+            "cmda_tpu_torch.uda.prototype",
+            "cmda_tpu_torch.tools.train_cyclegan",
+            "cmda_tpu_torch.tools.create_cityscapes_image_change"} <= set(
+                loaded)
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
 
@@ -72,6 +79,38 @@ def test_default_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tapis.init_segmentor("micro")
+
+
+@pytest.mark.parametrize("entry", ["cyclegan", "org_dacs", "dacs_image",
+                                   "train_cyclegan", "en"])
+def test_image_trainers_default_to_cuda(entry, monkeypatch, tmp_path):
+    """The CycleGAN trainer and its CLI, OrgDACS, DACSImage and the EN tool
+    run on cuda unless asked for the CPU, and raise without a GPU."""
+    import torch
+    from cmda_tpu_torch.tools import create_cityscapes_image_change as ic
+    from cmda_tpu_torch.tools import train_cyclegan
+    from cmda_tpu_torch.uda.cyclegan_train import (CycleGANConfig,
+                                                   CycleGANTrainer)
+    from cmda_tpu_torch.uda.dacs_image import DACSImageTrainer
+    from cmda_tpu_torch.uda.org_dacs import OrgDACSTrainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for d in ("a", "b"):
+        (tmp_path / d).mkdir()
+        (tmp_path / d / "0.png").write_bytes(b"")
+    calls = {
+        "cyclegan": lambda: CycleGANTrainer(CycleGANConfig()),
+        "org_dacs": lambda: OrgDACSTrainer(TC.micro_test_config()),
+        "dacs_image": lambda: DACSImageTrainer(TC.micro_test_config()),
+        "train_cyclegan": lambda: train_cyclegan.main([
+            "--data-a", str(tmp_path / "a"), "--data-b",
+            str(tmp_path / "b"), "--work-dir", str(tmp_path / "w")]),
+        "en": lambda: ic.load_generator(str(tmp_path / "g.pth"))}
+    if entry == "en":
+        from cmda_tpu_torch.models.cyclegan import ResnetGenerator
+        torch.save(ResnetGenerator(ngf=8, n_blocks=1).state_dict(),
+                   tmp_path / "g.pth")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
 
 
 def _fields(obj):

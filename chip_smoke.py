@@ -5,11 +5,11 @@
     python3 chip_smoke.py --device-time ROOT
         # only the device and per-call times of every port kernel of the
         # checkout at ROOT, at the points the main paths launch them
-    python3 chip_smoke.py --phases isr,ce,train_types,image_trainers
+    python3 chip_smoke.py --phases isr,ce,train_types,image_trainers,model_zoo
         # a short check of some phases alone (isr, ce: the kernel times and
         # phase_isr, phase_ce; train_types: the cs2dz step of phase_train,
-        # then phase_train_types; image_trainers: phase_image_trainers);
-        # prints no result line
+        # then phase_train_types; image_trainers: phase_image_trainers;
+        # model_zoo: phase_model_zoo); prints no result line
 
 Phases, any failure exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -48,7 +48,7 @@ Phases, any failure exits non-zero:
      versions and on the CPU (losses and AdamW's first moments), then the
      flagship cs2dsec MiT-b5
      DACS step at 512x512 batch 2 (random weights from seed 0, random
-     CycleGAN): 3 counted steps (finite logs, parameters move, the EMA
+     CycleGAN): 2 counted steps (finite logs, parameters move, the EMA
      teacher after step 0 is the pre-update student, each step launches CE
      forward 8, CE dx 8, argmax 3, ISR 1), the median step time, a device
      time and memory breakdown of one step by CUDA events and allocator
@@ -64,15 +64,15 @@ Phases, any failure exits non-zero:
      teacher copy's bytes beside the step's);
   7. the training run: ``cmda_tpu_torch.tools.train.main`` in-process on
      the same preset, synthetic data, bf16 wire feed, device prefetch 1,
-     4 loader threads, 8 iterations logged each, a checkpoint, an
-     evaluation of 8 val samples and debug grids every 4: the records,
+     4 loader threads, 6 iterations logged each, a checkpoint, an
+     evaluation of 8 val samples and debug grids every 3: the records,
      PNGs and checkpoints it writes, the launches of every step (as in 6),
      debug snapshot (argmax 1, ISR 1) and evaluation (argmax 8), the
-     iteration-4 checkpoint loaded in a fresh trainer equal to the state
+     iteration-3 checkpoint loaded in a fresh trainer equal to the state
      it was written from and stepping as it does, the last checkpoint
      served by ``init_segmentor``; the steady iteration time, data_time
      and its host parts, checkpoint bytes and seconds, evaluation seconds
-     and the device-busy share of 3 profiled iterations;
+     and the device-busy share of 2 profiled iterations;
   8. the other train types: the micro ``cs2dz`` and ``cs2dsec_image+events``
      (with grad_clip) steps through the kernels against their plain
      versions and the CPU, each run again with deterministic cuDNN (the
@@ -168,7 +168,24 @@ Phases, any failure exits non-zero:
      [2,128,128,256], 19 classes, memory 5000 on the card against the CPU,
      timed. None of the five kernels is on these paths: their counters
      must not move (``launches_image_trainers``);
- 16. one JSON line of per-kernel results, the nvidia-smi line, and last
+ 16. the model zoo (``phase_model_zoo``): CMDA's fusion and decoder-sharing
+     ablations through the train CLI's flags (``--fusion af``, ``--fusion
+     caf``, ``--no_share_decoder``, ``--half_share_decoder``) on the
+     cs2dsec MiT-b5 step at 512x512, batch 2, float32, each against its
+     plain-version twin with the flagship's launches (CE 8 / dx 8 / argmax
+     3 / ISR 1, the kernels line's ``launches_model_zoo``) and one timed
+     step; OrgDACS on DeepLabV2 / ResNet-101 at full depth
+     (``dacs_a999_fdthings``, rcs 0.01, plcrop, the frozen R101 twin for
+     the distance) for 3 steps with its times, sections and peak memory;
+     one supervised step at 512x512 batch 2 of DeepLabV3+, DANet and ISANet
+     on ResNet-101, DeepLabV2 on ResNeXt-101 and ResNeSt-101, SegFormer,
+     UPerNet and DAFormer-ISA on MiT-b5; ``tools.run_experiments`` in
+     process (``--exp 100`` and ``--exp 102`` whole, a combo of each of
+     grids 3-8), every combo [OK]; two supervised micro ResNet steps on the
+     card and the CPU against a float64 CPU run, and a TF32 control step
+     on the card that must fail the card's tolerance. The legacy paths
+     launch none of the kernels;
+ 17. one JSON line of per-kernel results, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -1275,9 +1292,10 @@ TRAIN_MOMENT_RTOL = 5e-4
 TRAIN_BF16_KERNEL_MOMENT_RTOL = 2.0 ** -6
 
 
-# phase_train's timed steps after its 3 counted ones: few, so the whole
-# script, phase_image_trainers included, stays well inside its time limit
-TRAIN_TIMED_STEPS = 2
+# phase_train's counted steps before its one timed step (the step its
+# CUDA-event sections are taken from): few, so the whole script,
+# phase_model_zoo included, stays well inside its time limit
+TRAIN_COUNTED_STEPS = 2
 # the bare step's median by phase tag ("train_cs2dz", ...) and the
 # synthetic run's steady iteration ("loop_cs2dz", ...), for the real runs
 STEP_MS_MEDIAN = {}
@@ -1325,6 +1343,20 @@ def _deterministic_cudnn():
         yield
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+@contextlib.contextmanager
+def _tf32(on):
+    """TF32 convolutions and matmuls inside when ``on``; off after, as the
+    script runs everything else."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 @contextlib.contextmanager
@@ -1602,11 +1634,11 @@ def phase_train(dtype="float32", batch=None, preset="cs2dsec", options=False):
     cs2dsec, or cs2dz): float32 at the preset's batch 2, or the JAX
     package's ``bench.py`` step (bfloat16 at batch 8), with ``options`` its
     ``--teacher-bf16 --moments bfloat16`` (``uda.teacher_bf16``,
-    ``optim.moment_dtype='bfloat16'``). 3 counted steps (launches, the
-    dtype of the logits each CE launch takes), then the step time, its
-    device-time breakdown, the peak memory and the bytes of AdamW's state
-    (and of the teacher's bfloat16 copy). Returns the launches of the 3
-    counted steps by kernel."""
+    ``optim.moment_dtype='bfloat16'``). TRAIN_COUNTED_STEPS counted steps
+    (launches, the dtype of the logits each CE launch takes), then the step
+    time, its device-time breakdown, the peak memory and the bytes of
+    AdamW's state (and of the teacher's bfloat16 copy). Returns the
+    launches of the counted steps by kernel."""
     import torch
     from cmda_tpu_torch import config as C
     from cmda_tpu_torch.data.synthetic import (SyntheticSource,
@@ -1637,7 +1669,7 @@ def phase_train(dtype="float32", batch=None, preset="cs2dsec", options=False):
     src = SyntheticSource(crop_size=(w, h), with_time_res=events)
     tgt = SyntheticTarget(crop_size=(w, h), with_events=events)
     batches = [uda_batch(src, tgt, [b * i + j for j in range(b)])
-               for i in range(5 + TRAIN_TIMED_STEPS)]
+               for i in range(TRAIN_COUNTED_STEPS + 2)]
     student0 = [p.detach().clone() for p in state.model.parameters()]
     totals = dict.fromkeys(TRAIN_COUNTED, 0)
     ce_dtypes = set()
@@ -1646,7 +1678,7 @@ def phase_train(dtype="float32", batch=None, preset="cs2dsec", options=False):
     def recorded_ce(x, *args, **kwargs):
         ce_dtypes.add(str(x.dtype))
         return real_ce(x, *args, **kwargs)
-    for i in range(3):
+    for i in range(TRAIN_COUNTED_STEPS):
         t0 = time.perf_counter()
         with mock.patch.object(transforms, "fused_resize_ce", recorded_ce):
             logs, launches = _counted_step(trainer, state, batches[i])
@@ -1666,7 +1698,8 @@ def phase_train(dtype="float32", batch=None, preset="cs2dsec", options=False):
                      "pre-update student")
     moved = sum(int(not torch.equal(p, q)) for p, q in
                 zip(state.model.parameters(), student0))
-    print(f"{tag}: after 3 steps {moved} of {len(student0)} parameter "
+    print(f"{tag}: after {TRAIN_COUNTED_STEPS} steps {moved} of "
+          f"{len(student0)} parameter "
           f"tensors moved; EMA teacher after step 0 == the pre-update "
           f"student; the CE kernels took logits of {sorted(ce_dtypes)}",
           flush=True)
@@ -1674,17 +1707,15 @@ def phase_train(dtype="float32", batch=None, preset="cs2dsec", options=False):
         fail(f"{tag}: no parameter moved")
     del student0
 
-    # the peak of the timed steps, without the copy of the student above
+    # the timed step carries the section marks; its peak is the largest of
+    # its sections' (without the copy of the student above)
     torch.cuda.reset_peak_memory_stats()
-    step_ms = []
-    for i in range(TRAIN_TIMED_STEPS):
-        t0 = time.perf_counter()
-        trainer.train_step(state, batches[3 + i])
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     breakdown, memory, start_gib = _step_sections(trainer, state,
                                                   batches[-2])
+    step_ms = [(time.perf_counter() - t0) * 1e3]
+    peak = max(top for top, _ in memory.values())
     total = sum(breakdown.values())
     prof_ms, busy_ms, n_events, step_kernels = _device_busy(
         trainer, state, batches[-1])
@@ -1716,7 +1747,7 @@ def phase_train(dtype="float32", batch=None, preset="cs2dsec", options=False):
                               for n, (k, t) in step_kernels.items()),
           flush=True)
     print(f"{tag}: step time median {statistics.median(step_ms):.2f} ms over "
-          f"{TRAIN_TIMED_STEPS} steps "
+          f"{len(step_ms)} steps "
           f"({', '.join(f'{t:.2f}' for t in step_ms)}), "
           f"{b / statistics.median(step_ms) * 1e3:.3f} samples/s; peak device "
           f"memory {peak:.2f} GiB; AdamW state {adamw_bytes} bytes "
@@ -1738,14 +1769,14 @@ def phase_train(dtype="float32", batch=None, preset="cs2dsec", options=False):
 
 # the training run through its CLI: the flagship at 512x512 batch 2 for 8
 # iterations, logging each, with a checkpoint, an evaluation of the
-# 8-sample val set (batch 1) and debug grids every 4. A debug snapshot runs
+# 8-sample val set (batch 1) and debug grids every 3. A debug snapshot runs
 # steps 1-5 of the step (the teacher's pseudo-labels, the mixed ISR); an
 # evaluation one argmax per val sample. The iterations timed as steady are
 # those whose record holds no debug snapshot, checkpoint or evaluation
-# (a record's time runs from the previous record, so iteration 5's holds
-# iteration 4's checkpoint and evaluation); iterations 5-7 are profiled.
-LOOP_ITERS = 8
-LOOP_INTERVAL = 4
+# (a record's time runs from the previous record, so iteration 4's holds
+# iteration 3's checkpoint and evaluation); iterations 4-5 are profiled.
+LOOP_ITERS = 6
+LOOP_INTERVAL = 3
 LOOP_VAL = 8
 LOOP_DEBUG_LAUNCHES = {"fused_resize_ce": 0, "fused_resize_ce_dx": 0,
                        "fused_resize_ce_dweight": 0,
@@ -1753,8 +1784,8 @@ LOOP_DEBUG_LAUNCHES = {"fused_resize_ce": 0, "fused_resize_ce_dx": 0,
 LOOP_EVAL_LAUNCHES = {"fused_resize_ce": 0, "fused_resize_ce_dx": 0,
                       "fused_resize_ce_dweight": 0,
                       "fused_resize_argmax": LOOP_VAL, "batched_isr": 0}
-LOOP_STEADY = (2, 3, 6, 7)
-LOOP_PROFILED = (5, 6, 7)
+LOOP_STEADY = (2, 5)
+LOOP_PROFILED = (4, 5)
 LOOP_LOG_RTOL = 1e-6
 
 
@@ -2066,28 +2097,38 @@ def phase_loop(preset="cs2dsec"):
             return max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12) for k in a)
         # cuDNN's default convolution algorithms (the CycleGAN's transposed
         # convolutions among them) need not give the same bits on two
-        # calls: first the two steps as the run takes them, on copies
-        # (reported), then with deterministic algorithms (held)
-        usual = [step_logs(copy.deepcopy(s)) for s in (saved["state"], loaded)]
+        # calls: on cs2dsec first the two steps as the run takes them, on
+        # copies (reported; cs2dz's, without the CycleGAN, were bitwise
+        # equal and are no longer run, to keep the script inside its
+        # time), then with deterministic algorithms (held)
+        usual = ([step_logs(copy.deepcopy(s))
+                  for s in (saved["state"], loaded)]
+                 if preset == "cs2dsec" else None)
         with _deterministic_cudnn():
             a, b = step_logs(saved["state"]), step_logs(loaded)
-        timings["resume_step_rel_diff_usual"] = worst(*usual)
+        if usual is not None:
+            timings["resume_step_rel_diff_usual"] = worst(*usual)
         timings["resume_step_rel_diff_deterministic"] = worst(a, b)
         if worst(a, b) > LOOP_LOG_RTOL:
             fail(f"{tag}: a step from the loaded state differs by "
                  f"{worst(a, b):.3g} relative: {a} vs {b}")
+        if usual is None:
+            usual_txt = ""
+        elif usual[0] == usual[1]:
+            usual_txt = "; with the default ones: bitwise equal"
+        else:
+            usual_txt = (f"; with the default ones: within "
+                         f"{worst(*usual):.3g} relative (" + ", ".join(
+                             f"{k} {usual[0][k]!r} vs {usual[1][k]!r}"
+                             for k in usual[0] if usual[0][k] != usual[1][k])
+                         + ")")
         print(f"{tag}: iter_{LOOP_INTERVAL}.pth in a fresh trainer equals the "
               f"state it was written from in all {len(ref)} tensors and the "
               f"step; one step from each on one batch and draws, with "
               f"deterministic cuDNN algorithms: logs "
               + ("bitwise equal" if a == b else
                  f"within {worst(a, b):.3g} relative") + ", tolerance "
-              f"{LOOP_LOG_RTOL:g}; with the default ones: "
-              + ("bitwise equal" if usual[0] == usual[1] else
-                 f"within {worst(*usual):.3g} relative ("
-                 + ", ".join(f"{k} {usual[0][k]!r} vs {usual[1][k]!r}"
-                             for k in usual[0] if usual[0][k] != usual[1][k])
-                 + ")"), flush=True)
+              f"{LOOP_LOG_RTOL:g}" + usual_txt, flush=True)
         del saved["state"], loaded, fresh, trainer
 
         # --- the last checkpoint serves --------------------------------
@@ -2101,7 +2142,8 @@ def phase_loop(preset="cs2dsec"):
         student = Segmentor(cfg, state.model, seg.output).predict(
             sample["image"], second)
         if not torch.equal(ours, student):
-            fail(f"{tag}: init_segmentor(iter_8.pth) predicts other labels "
+            fail(f"{tag}: init_segmentor(iter_{LOOP_ITERS}.pth) predicts "
+                 "other labels "
                  "than the student")
         del seg
 
@@ -2132,7 +2174,8 @@ def phase_loop(preset="cs2dsec"):
     print(f"{tag}: data_time ms " + ", ".join(
         f"{i} {t:.3f}" for i, t in timings["loop_data_ms"].items())
         + f"; median after the first {timings['loop_data_ms_median']:.3f}; "
-        f"of it, in the loop (iterations 2-8, median): the loader queue "
+        f"of it, in the loop (iterations 2-{LOOP_ITERS}, median): the "
+        f"loader queue "
         f"{statistics.median(timings['loop_queue_ms']):.3f} ms, encode_wire "
         f"{statistics.median(timings['loop_encode_ms']):.3f} ms" + (
         "" if not feed else
@@ -2166,6 +2209,7 @@ TEST_FRAMES = 4
 TEST_FRAME = (1080, 1920)    # DarkZurich's frames, resized to 540x960
 TEST_SIZE = (540, 960)
 SLIDE_TOL = 1e-5             # of max|logit|: the batched vs the crop loop
+TEST_TIMED_REPS = 1          # timed calls after the warm-up
 # whole-mode launches of the test path: argmax per evaluation batch (batch
 # 1), per submission batch (4 frames) and per infer image; ISR per infer
 # image (evaluation's ISR is the dataset's, on the host)
@@ -2480,13 +2524,13 @@ def phase_test():
                         seg.model, img, isr, stream), TEST_SIZE)
             timings[f"whole_{stream}_ms"] = wall_ms(whole_fn)
         timings["slide_540x960_ms"] = wall_ms(
-            lambda: slide(x).argmax(-1), warmup=1, reps=3)
+            lambda: slide(x).argmax(-1), warmup=1, reps=TEST_TIMED_REPS)
         big = DarkZurichDataset(root, split="val", image_resize_size=(1920,
                                                                       1080),
                                 isr_params=cfg.data.target_isr)
         xb = frame(big, 0)
         timings["slide_1080x1920_ms"] = wall_ms(
-            lambda: slide(xb).argmax(-1), warmup=1, reps=3)
+            lambda: slide(xb).argmax(-1), warmup=1, reps=TEST_TIMED_REPS)
         del xb
 
         def aug():
@@ -2495,9 +2539,11 @@ def phase_test():
             with torch.no_grad():
                 return multi_scale_flip_inference(
                     crop_logits, x, scales=TTA_SCALES, flip=True).argmax(-1)
-        timings["aug_test_540x960_ms"] = wall_ms(aug, warmup=1, reps=3)
+        timings["aug_test_540x960_ms"] = wall_ms(aug, warmup=1,
+                                                 reps=TEST_TIMED_REPS)
         timings["infer_1080x1920_ms"] = wall_ms(
-            lambda: inference_segmentor(seg, pngs[0]), warmup=1, reps=3)
+            lambda: inference_segmentor(seg, pngs[0]), warmup=1,
+            reps=TEST_TIMED_REPS)
         del seg
     timings["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     timings["phase_s"] = time.perf_counter() - t_phase
@@ -2542,7 +2588,7 @@ def _tree_bytes(root):
                for d, _, files in os.walk(root) for f in files)
 
 
-def _median_ms(fn, reps=3):
+def _median_ms(fn, reps=2):
     out = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -2863,7 +2909,7 @@ def phase_real_corpus(corpus):
 # of Flare7K's scattering flares and gray sky-noise textures, written here;
 # run 1 took 3 iterations until PR 12 (cut to keep the script inside its
 # time with phase_train_types)
-ISR_RUN_ITERS = (2, 2)
+ISR_RUN_ITERS = (1, 1)
 ISR_ALONE_STEPS = 1   # 3 until PR 12
 ISR_FLARES, ISR_FLARE_SIZE = 4, (1440, 1440)
 ISR_SKY_NOISE, ISR_SKY_NOISE_SIZE = 2, (1024, 512)
@@ -3211,13 +3257,13 @@ def _dsec_host_ms():
     kw = _isr_kw(C.cs2dsec_image_events_b5().data.target_isr)
     return {
         "voxel_grid_ms": _median_ms(lambda: host_voxel_grid(
-            t, x, y, p, w, h, DSEC_BINS), reps=3),
+            t, x, y, p, w, h, DSEC_BINS), reps=2),
         "events_norm_ms": _median_ms(lambda: host_events_norm(
-            grid.copy(), 1.5), reps=3),
+            grid.copy(), 1.5), reps=2),
         "frame_png_decode_ms": _median_ms(lambda: Image.open(
-            _io.BytesIO(png)).convert("RGB"), reps=3),
+            _io.BytesIO(png)).convert("RGB"), reps=2),
         "frame_isr_640x440_ms": _median_ms(lambda: host_image_change(
-            frame, shift_direction="rightdown", **kw), reps=3),
+            frame, shift_direction="rightdown", **kw), reps=2),
     }
 
 
@@ -3404,11 +3450,10 @@ UDA_OPTION_STEPS = (
 UDA_LEVERS = {"stacked_stream_ce": True, "shift_type": "all"}
 UDA_LEVER_STEPS = 1
 # the coin's host read: the events-coin isr_another_fusion step (the
-# default graph plus the read) against the default step, in turns; 3 steps
-# each until PR 12, cut to keep the script inside its time with
-# phase_train_types (as were PR 12's profiled steps of each lever alone)
+# default graph plus the read), beside phase_train's flagship step; few
+# steps, to keep the script inside its time
 UDA_COIN_READ_STEPS = 1
-UDA_CLI_ITERS = 2
+UDA_CLI_ITERS = 1
 
 
 def phase_uda_options():
@@ -3474,33 +3519,30 @@ def phase_uda_options():
         gc.collect()
         torch.cuda.empty_cache()
 
-    # the coin's host read: same graph, the read the only difference
-    reads = {"default": [], "isr_another_fusion_events": []}
-    trainers = {"default": DACSTrainer(base, device="cuda"),
-                "isr_another_fusion_events": DACSTrainer(cfg_of(
-                    TOGETHER, {"isr_another_fusion": True}), device="cuda")}
-    states = {k: copy.deepcopy(state0) for k in trainers}
-    for i in range(UDA_COIN_READ_STEPS + 1):
-        for k, tr in trainers.items():
-            d = tr.new_draws(states[k], 2, (h, w))
-            d.coin = torch.tensor(0.9, device=d.coin.device)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tr.train_step(states[k], batch, d)
-            torch.cuda.synchronize()
-            if i:   # the first of each is a warm-up
-                reads[k].append((time.perf_counter() - t0) * 1e3)
-    del trainers, states, state0
+    # the coin's host read: the events-coin step with isr_another_fusion
+    # runs the default graph plus the read; it ran in the twins above, so
+    # no warm-up step; beside phase_train's flagship step
+    reads = []
+    tr = DACSTrainer(cfg_of(TOGETHER, {"isr_another_fusion": True}),
+                     device="cuda")
+    st = copy.deepcopy(state0)
+    for _ in range(UDA_COIN_READ_STEPS):
+        d = tr.new_draws(st, 2, (h, w))
+        d.coin = torch.tensor(0.9, device=d.coin.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(st, batch, d)
+        torch.cuda.synchronize()
+        reads.append((time.perf_counter() - t0) * 1e3)
+    del tr, st, state0
     gc.collect()
     torch.cuda.empty_cache()
     timings["coin_read_ms"] = reads
     print(f"{tag}: the events-coin step with isr_another_fusion (one host "
-          f"read of the coin) ms " + ", ".join(
-              f"{t:.2f}" for t in reads["isr_another_fusion_events"])
-          + f", median {statistics.median(reads['isr_another_fusion_events']):.2f}"
-          f"; the default step in turns ms " + ", ".join(
-              f"{t:.2f}" for t in reads["default"]) + f", median "
-          f"{statistics.median(reads['default']):.2f} ({smi})", flush=True)
+          f"read of the coin) ms " + ", ".join(f"{t:.2f}" for t in reads)
+          + f"; the flagship step's median (phase_train) "
+          f"{STEP_MS_MEDIAN.get('train', float('nan')):.2f} ({smi})",
+          flush=True)
 
     # the levers, with the fused resize
     cfg = C.replace(cfg_of(TOGETHER, UDA_LEVERS), model=C.replace(
@@ -3605,7 +3647,7 @@ TYPES_STEPS = (
       "imnet_feature_dist_lambda": TYPES_FDIST}),
     ("d2n", D2N, {}))
 TYPES_TIMED_STEPS = 1
-TYPES_CLI_ITERS = 2
+TYPES_CLI_ITERS = 1
 # the DarkZurich frames the phase writes: 2 train nights (and their
 # deflared copies) and 2 days at 1920x1080, the days' transferred ISRs as
 # 1920x540 side-by-side PNGs; the source labels in 64x64 squares, so the
@@ -4431,6 +4473,394 @@ def phase_image_trainers():
     return launches
 
 
+# the model zoo (phase_model_zoo): CMDA's fusion and decoder-sharing
+# ablations through the train CLI's own flags on the flagship b5 step, each
+# one step against its plain-version twin and one timed
+ZOO_ABLATIONS = (("fusion_af", ["--fusion", "af"]),
+                 ("fusion_caf", ["--fusion", "caf"]),
+                 ("no_share_decoder", ["--no_share_decoder"]),
+                 ("half_share_decoder", ["--half_share_decoder"]))
+ZOO_ORG_STEPS = 3
+# one supervised step of every other head and block type at full width
+# (the grid's names; backbones at full depth, heads at the JAX package's
+# own HeadConfig defaults and head arguments), 512x512, batch 2
+ZOO_SUPERVISED = (("dlv3p_nodbn", "r101v1c"), ("da_nodbn", "r101v1c"),
+                  ("isa_nodbn", "r101v1c"), ("dlv2red", "x101-32"),
+                  ("dlv2red", "s101"), ("segformer", "mitb5"),
+                  ("upernet", "mitb5"), ("daformer_isa", "mitb5"))
+ZOO_SUPERVISED_HW = 512
+ZOO_GRIDS = (3, 4, 5, 6, 7, 8)
+# the micro supervised twin: each step from the CPU's float32 state, on the
+# card (float32, TF32 off) and on the CPU in float32, each held against a
+# float64 run of the same step on the CPU: every tensor's parameter change
+# within ZOO_MICRO_F64_RTOL[device] of the float64 run's largest change.
+# The gradient of the ResNet's stem, behind four stages of train-mode
+# BatchNorm, is the largest and the least resolved in float32: the CPU's
+# float32 steps are 2.2e-3 and 1.1e-2 of the largest apart from float64
+# (steps 1 and 2), the card's 1.3e-3 (NVIDIA H100 80GB HBM3), so
+# phase_train_micro's 5e-4 cannot hold. A control step on the card with
+# TF32 on (0.165 there) must land outside the card's tolerance, or the
+# check could not tell a lower-precision card step from a float32 one
+ZOO_MICRO_HW = 64
+ZOO_MICRO_F64_RTOL = {"cuda": 5e-3, "cpu": 2.5e-2}
+
+
+def _zoo_ablations(tag, smi, timings, totals):
+    """The four ablation steps: each config from ``tools.train``'s parser
+    and ``build_config`` (``--config cs2dsec --synthetic`` plus the flag),
+    one step against its plain-version twin (``_twin_step``) with the
+    flagship's launches checked, then one timed step."""
+    import torch
+    from cmda_tpu_torch.data.synthetic import (SyntheticSource,
+                                               SyntheticTarget, uda_batch)
+    from cmda_tpu_torch.tools import train as ttrain
+    batch = None
+    for name, flags in ZOO_ABLATIONS:
+        cfg = ttrain.build_config(ttrain.parse_args(
+            ["--config", "cs2dsec", "--synthetic"] + flags))
+        if batch is None:
+            w, h = cfg.data.crop_size
+            batch = uda_batch(SyntheticSource(crop_size=(w, h)),
+                              SyntheticTarget(crop_size=(w, h)), [0, 1])
+        t0 = time.perf_counter()
+        logs, _, launches, errors, timing = _twin_step(
+            cfg, batch, f"{tag} {name}", timed_steps=1)
+        for k, v in launches.items():
+            totals[k] += v
+        if launches != TRAIN_LAUNCHES_PER_STEP:
+            fail(f"{tag} {name}: launches {launches}, expected the "
+                 f"flagship's {TRAIN_LAUNCHES_PER_STEP}")
+        m = cfg.model
+        timings[name] = {"twin_errors": errors, **timing,
+                         "wall_s": time.perf_counter() - t0}
+        print(f"{tag} {name}: cs2dsec b5 512x512 batch 2, fusion "
+              f"{m.fusion!r}, fusion_isr {m.fusion_isr!r}, share "
+              f"{m.share_decoder!r}: launches {launches}, loss "
+              f"{logs['loss']:.5f}; " + _twin_summary(errors) + "; step ms "
+              + ", ".join(f"{t:.2f}" for t in timing["step_ms"])
+              + f"; peak {timing['peak_gib']:.2f} GiB ({smi})", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _zoo_org_r101(tag, smi, timings):
+    """OrgDACS on DeepLabV2 / ResNet-101 (``dlv2red_r101v1c`` at full
+    depth, 19 classes) with ``_legacy_uda_cfg(.., 'dacs_a999_fdthings',
+    0.01, plcrop=True)`` on the cs2dz preset's 512x512 batch 2, the frozen
+    R101 twin for the distance: ZOO_ORG_STEPS steps (finite logs,
+    parameters move, the EMA teacher after step 0 is the pre-update
+    student), their times, one step's sections, the peak memory."""
+    import torch
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.tools import run_experiments as trun
+    from cmda_tpu_torch.uda.org_dacs import OrgDACSTrainer
+    base = C.cs2dz_image_rawisr_b5()
+    base = C.replace(base, model=C.replace(base.model,
+                                           train_type="cs2dz_image",
+                                           fusion="", fusion_isr=""))
+    cfg = trun._legacy_uda_cfg(base, "dacs_a999_fdthings", 0.01, True)
+    t0 = time.perf_counter()
+    trainer = OrgDACSTrainer(cfg, "cuda",
+                             model=_zoo_model("dlv2red", "r101v1c"),
+                             imnet_model=_zoo_model("dlv2red", "r101v1c"))
+    state = trainer.init_state(seed=0)
+    batches = _image_batch(cfg, ZOO_ORG_STEPS + 1, seed=11)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    student0 = [p.detach().clone() for p in state.model.parameters()]
+    step_ms, records = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(ZOO_ORG_STEPS):
+        t0 = time.perf_counter()
+        _, logs = trainer.train_step(state, batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        logs = {k: float(v) for k, v in logs.items()}
+        records.append(logs)
+        if not all(math.isfinite(v) for v in logs.values()):
+            fail(f"{tag} org r101 step {i}: logs {logs}")
+        if i == 0 and not all(torch.equal(e, p) for e, p in zip(
+                state.ema_model.parameters(), student0)):
+            fail(f"{tag} org r101: after step 0 the EMA teacher is not the "
+                 "pre-update student")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = sum(int(not torch.equal(p, q)) for p, q in
+                zip(state.model.parameters(), student0))
+    if not moved or not records[-1]["src/loss_imnet_feat_dist"] > 0:
+        fail(f"{tag} org r101: {moved} tensors moved, logs {records[-1]}")
+    parts = {g["part"] for g in state.optimizer.param_groups}
+    del student0
+    trainer.marks = []
+    trainer.train_step(state, batches[-1])
+    torch.cuda.synchronize()
+    marks, trainer.marks = trainer.marks, None
+    sections = {IMG_ORG_NAMES[n]: a.elapsed_time(e)
+                for (_, a, _, _), (n, e, _, _) in zip(marks, marks[1:])}
+    med = statistics.median(step_ms)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    timings["org_r101"] = {"build_s": build_s, "step_ms": step_ms,
+                           "step_ms_median": med, "peak_gib": peak,
+                           "sections_ms": sections, "logs": records,
+                           "params": n_params}
+    print(f"{tag} org r101: OrgDACS DeepLabV2 ResNet-101 d8 (3, 4, 23, 3), "
+          f"{n_params} parameters, dacs_a999_fdthings rcs 0.01 plcrop, "
+          f"512x512 batch 2, the frozen R101 twin for the distance, built "
+          f"in {build_s:.1f} s; optimizer groups {sorted(parts)}; "
+          f"{ZOO_ORG_STEPS} steps: loss " + ", ".join(
+              f"{r['loss']:.5f}" for r in records) + ", feature distance "
+          + ", ".join(f"{r['src/loss_imnet_feat_dist']:.5f}" for r in records)
+          + f"; {moved} parameter tensors moved; EMA teacher after step 0 =="
+          f" the pre-update student; step ms " + ", ".join(
+              f"{t:.2f}" for t in step_ms) + f", median {med:.2f}; peak "
+          f"{peak:.2f} GiB; one step's device ms " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sections.items()) + f" ({smi})",
+          flush=True)
+
+
+def _zoo_model(arch, backbone):
+    """The GenericEncoderDecoder of a grid (arch, backbone) pair at full
+    width, 19 classes: the backbone at its full RESNET_VARIANTS /
+    MIT_VARIANTS depth, the head at the JAX package's own ``HeadConfig`` /
+    ``DAFormerHeadConfig`` defaults and the launcher's head arguments."""
+    from cmda_tpu_torch.models.daformer import DAFormerHead, DAFormerHeadConfig
+    from cmda_tpu_torch.models.heads import (ASPPHead, DAHead, DLV2Head,
+                                             HeadConfig, ISAHead,
+                                             SegFormerHead, UPerHead)
+    from cmda_tpu_torch.models.mit import MIT_VARIANTS, MixVisionTransformer
+    from cmda_tpu_torch.models.resnet import (OUT_CHANNELS, RESNET_VARIANTS,
+                                              ResNetV1c)
+    from cmda_tpu_torch.models.segmentor import GenericEncoderDecoder
+    from cmda_tpu_torch.tools.run_experiments import _LEGACY_RESNET_MAP
+    if backbone.startswith("mitb"):
+        cfg = MIT_VARIANTS["mit_b" + backbone[len("mitb")]]
+        bb, ch = MixVisionTransformer(cfg), tuple(cfg.embed_dims)
+    else:
+        bb = ResNetV1c(RESNET_VARIANTS[_LEGACY_RESNET_MAP[backbone]])
+        ch = OUT_CHANNELS
+    hc = HeadConfig(in_channels=ch, num_classes=19)
+    head = {
+        "dlv2red": lambda: DLV2Head(hc),
+        "dlv3p_nodbn": lambda: ASPPHead(hc, dilations=(1, 12, 24), sep=True,
+                                        c1_channels=48),
+        "da_nodbn": lambda: DAHead(hc),
+        "isa_nodbn": lambda: ISAHead(hc),
+        "segformer": lambda: SegFormerHead(hc),
+        "upernet": lambda: UPerHead(hc),
+        "daformer_isa": lambda: DAFormerHead(DAFormerHeadConfig(
+            in_channels=ch, num_classes=19, fusion_type="isa")),
+    }[arch]()
+    return GenericEncoderDecoder(bb, head)
+
+
+def _zoo_supervised(tag, smi, timings):
+    """One supervised step of each ZOO_SUPERVISED combo at full width:
+    finite loss, parameters moving, the step's ms (its first, so cuDNN's
+    algorithm choice and the allocator's growth are in it)."""
+    import torch
+    from cmda_tpu_torch.models.common import init_weights
+    from cmda_tpu_torch.tools import run_experiments as trun
+    hw = ZOO_SUPERVISED_HW
+    img, lbl = trun.supervised_batch(hw, 19, batch=2)
+    img, lbl = torch.from_numpy(img).cuda(), torch.from_numpy(lbl).cuda()
+    out = {}
+    for arch, bb in ZOO_SUPERVISED:
+        name = f"{arch}_{bb}"
+        t0 = time.perf_counter()
+        model = _zoo_model(arch, bb).cuda()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        init_weights(model, gen)
+        draws = model.new_draws(2, generator=gen, device=img.device)
+        opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+        before = [p.detach().clone() for p in model.parameters()]
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = float(trun.supervised_step(model, opt, img, lbl, draws))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        moved = sum(int(not torch.equal(p, q)) for p, q in
+                    zip(model.parameters(), before))
+        if not math.isfinite(loss) or not moved:
+            fail(f"{tag} supervised {name}: loss {loss}, {moved} tensors "
+                 "moved")
+        n_params = sum(p.numel() for p in model.parameters())
+        out[name] = {"step_ms": ms, "loss": loss, "build_s": build_s,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "params": n_params}
+        print(f"{tag} supervised {name}: {type(model.backbone).__name__} "
+              f"{type(model.decode_head).__name__}, {n_params} parameters, "
+              f"512x512 batch 2: loss {loss:.5f}; {moved} tensors moved; "
+              f"step ms {ms:.2f} (the first step); peak "
+              f"{out[name]['peak_gib']:.2f} GiB ({smi})", flush=True)
+        del model, opt, before
+        gc.collect()
+        torch.cuda.empty_cache()
+    timings["supervised"] = out
+
+
+def _zoo_launcher(tag, smi, timings):
+    """``run_experiments`` in-process on the card: ``--exp 100`` and
+    ``--exp 102`` whole, one combo of each of grids 3-8 (``--only`` its
+    first); every combo must be [OK]."""
+    from cmda_tpu_torch.tools import run_experiments as trun
+    runs = [["--exp", "100"], ["--exp", "102"]] + [
+        ["--exp", str(e), "--only", trun.legacy_table_grid(e)[0]["name"]]
+        for e in ZOO_GRIDS]
+    out = {}
+    for argv in runs:
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                results = trun.main(argv + ["--device", "cuda"])
+        except SystemExit as e:
+            print(buf.getvalue()[-4000:], flush=True)
+            fail(f"{tag} run_experiments {' '.join(argv)}: exit {e.code}")
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith(("[OK]", "[FAIL]"))]
+        bad = [n for n, r in results.items() if not r["ok"]]
+        if bad or not results or len(lines) != len(results):
+            print(buf.getvalue()[-4000:], flush=True)
+            fail(f"{tag} run_experiments {' '.join(argv)}: failed {bad}")
+        key = " ".join(argv[:2])
+        out[key] = {"combos": len(results),
+                    "seconds": time.perf_counter() - t0,
+                    "losses": {n: r["loss"] for n, r in results.items()}}
+        print(f"{tag} run_experiments {' '.join(argv)} --device cuda: "
+              f"{len(results)} combos [OK] in {out[key]['seconds']:.1f} s: "
+              + "; ".join(lines[:3]) + (" ..." if len(lines) > 3 else "")
+              + f" ({smi})", flush=True)
+    timings["launcher"] = out
+
+
+def _zoo_micro(tag):
+    """Two supervised steps of ``dlv2red`` on ResNetV1c at depths
+    (1, 1, 1, 1), 64x64 batch 2, each from the CPU's float32 state
+    (deterministic cuDNN): on the card in float32, on the CPU in float32
+    and in float64. Each float32 step's loss to TRAIN_LOSS_RTOL of the
+    float64 one, each tensor's parameter change to the device's
+    ZOO_MICRO_F64_RTOL of the float64 step's largest change; then the
+    card's step again with TF32 on, which must land outside the card's
+    tolerance."""
+    import copy
+    import torch
+    from cmda_tpu_torch.models.common import init_weights
+    from cmda_tpu_torch.tools import run_experiments as trun
+    cpu = trun._legacy_model_builder("dlv2red", "r101v1c")()
+    init_weights(cpu, torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).cuda()
+    f64 = copy.deepcopy(cpu).double()
+    f64.dtype = torch.float64
+    img, lbl = trun.supervised_batch(ZOO_MICRO_HW, 19, batch=2)
+    img, lbl = torch.from_numpy(img), torch.from_numpy(lbl)
+    worst = {"cuda": 0.0, "cpu": 0.0, "cuda_tf32": 0.0}
+    loss_rel = 0.0
+
+    def step(model, x, y, state, tf32=False):
+        """One SGD step of ``model`` from ``state``: (loss, the changes of
+        its parameters, in float64 on the CPU)."""
+        model.load_state_dict(state)
+        p0 = [p.detach().to("cpu", torch.float64, copy=True)
+              for p in model.parameters()]
+        opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+        with _tf32(tf32):
+            loss = float(trun.supervised_step(model, opt, x, y))
+        return loss, [p.detach().double().cpu() - a
+                      for p, a in zip(model.parameters(), p0)]
+    with _deterministic_cudnn():
+        for i in range(2):
+            state = {k: v.clone() for k, v in cpu.state_dict().items()}
+            with mock.patch.object(torch.Tensor, "float",
+                                   lambda t: t.double()):
+                ref_loss, ref = step(f64, img.double(), lbl, state)
+            scale = max(float(r.abs().max()) for r in ref)
+            runs = {"cuda_tf32": step(gpu, img.cuda(), lbl.cuda(), state,
+                                      tf32=True),
+                    "cuda": step(gpu, img.cuda(), lbl.cuda(), state),
+                    "cpu": step(cpu, img, lbl, state)}
+            for name, (loss, changes) in runs.items():
+                d = max(float((c - r).abs().max())
+                        for c, r in zip(changes, ref)) / scale
+                worst[name] = max(worst[name], d)
+                if name == "cuda_tf32":
+                    continue
+                err = abs(loss - ref_loss) / abs(ref_loss)
+                loss_rel = max(loss_rel, err)
+                tol = ZOO_MICRO_F64_RTOL[name]
+                if not err <= TRAIN_LOSS_RTOL or not d <= tol:
+                    fail(f"{tag} micro: step {i} on {name}: loss {loss} vs "
+                         f"{ref_loss} in float64; parameter changes {d:.3g}"
+                         f" of the largest apart (tolerance {tol:g})")
+    tol = ZOO_MICRO_F64_RTOL["cuda"]
+    if not worst["cuda_tf32"] > tol:
+        fail(f"{tag} micro: the TF32 control step is within "
+             f"{worst['cuda_tf32']:.3g} of float64, inside the card's "
+             f"tolerance {tol:g}: the check cannot tell it from float32")
+    print(f"{tag} micro: 2 supervised dlv2red ResNetV1c (1, 1, 1, 1) steps "
+          f"at 64x64, each from the cpu's float32 state, against a float64 "
+          f"cpu run of the step: losses within {loss_rel:.3g} (rtol "
+          f"{TRAIN_LOSS_RTOL:g}); parameter changes within "
+          f"{worst['cuda']:.3g} (cuda, tolerance {tol:g}) and "
+          f"{worst['cpu']:.3g} (cpu, tolerance "
+          f"{ZOO_MICRO_F64_RTOL['cpu']:g}) of the largest; the TF32 control "
+          f"on cuda {worst['cuda_tf32']:.3g} (must be over {tol:g})",
+          flush=True)
+    return {"loss_rel": loss_rel, **{f"delta_rel_{k}": v
+                                     for k, v in worst.items()}}
+
+
+def phase_model_zoo():
+    """The model zoo at full width: CMDA's fusion (``--fusion af``,
+    ``--fusion caf``) and decoder-sharing (``--no_share_decoder``,
+    ``--half_share_decoder``) ablations on the cs2dsec MiT-b5 step at
+    512x512 batch 2, each against its plain-version twin with the
+    flagship's launches (CE 8 / dx 8 / argmax 3 / ISR 1) and timed; OrgDACS
+    on DeepLabV2 / ResNet-101 (DAFormer's DACS baseline) for ZOO_ORG_STEPS
+    steps; one supervised step of every other head and block type
+    (ZOO_SUPERVISED); ``run_experiments`` in-process (``--exp 100``,
+    ``--exp 102``, a combo of each of grids 3-8); the micro supervised
+    steps on the card and the CPU against float64 (``_zoo_micro``). The
+    kernel counters are set to 0
+    at the start: the ablation steps' launches are the phase's, and the
+    legacy paths, plain torch in the JAX package too, must launch none.
+    Returns those launches."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag, smi = "model_zoo", smi_line()
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    totals = dict.fromkeys(TRAIN_COUNTED, 0)
+    timings = {}
+    _zoo_ablations(tag, smi, timings, totals)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    _zoo_org_r101(tag, smi, timings)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zoo_supervised(tag, smi, timings)
+    timings["micro"] = _zoo_micro(tag)
+    legacy_s = time.perf_counter() - t0
+    legacy = {k: fn.launches for k, fn in counters.items()}
+    if any(legacy.values()):
+        fail(f"{tag}: the legacy paths launched port kernels {legacy}; none "
+             "is on them")
+    _zoo_launcher(tag, smi, timings)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timings["phase_s"] = time.perf_counter() - t_phase
+    print(f"{tag}: launches {totals} (the four ablation steps), legacy "
+          f"paths {legacy} in {legacy_s:.1f} s; phase "
+          f"{timings['phase_s']:.1f} s ({smi})", flush=True)
+    print(f"{tag} timings " + json.dumps(timings, default=float), flush=True)
+    return totals
+
+
 def device_time_only(root):
     """``--device-time ROOT``: build the kernels of the checkout at ROOT
     (another commit unpacked beside this one, say) and print one JSON line
@@ -4456,7 +4886,8 @@ def phases_only(names):
     """``--phases``: build the kernels and run the named phases alone."""
     import torch
     from cmda_tpu_torch.ops import _build
-    unknown = set(names) - {"isr", "ce", "train_types", "image_trainers"}
+    unknown = set(names) - {"isr", "ce", "train_types", "image_trainers",
+                            "model_zoo"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
     print(smi_line(), flush=True)
@@ -4477,6 +4908,8 @@ def phases_only(names):
     if "image_trainers" in names:
         print(json.dumps({"image_trainers": phase_image_trainers()}),
               flush=True)
+    if "model_zoo" in names:
+        print(json.dumps({"model_zoo": phase_model_zoo()}), flush=True)
 
 
 def main():
@@ -4580,6 +5013,8 @@ def main():
     elapsed("phase_train_types")
     image_launches = phase_image_trainers()
     elapsed("phase_image_trainers")
+    zoo_launches = phase_model_zoo()
+    elapsed("phase_model_zoo")
     for r in results:
         # the serving kernels keep their serving-path count under
         # "launches"; the training path's count goes beside it, and the
@@ -4602,6 +5037,7 @@ def main():
         r["launches_uda_levers"] = lever_launches[r["name"]]
         r["launches_train_types"] = types_launches[r["name"]]
         r["launches_image_trainers"] = image_launches[r["name"]]
+        r["launches_model_zoo"] = zoo_launches[r["name"]]
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi, flush=True)

@@ -185,16 +185,18 @@ class ConvBNReLU(nn.Module):
 def init_weights(module: nn.Module, generator: torch.Generator):
     """Reference random init, drawn from ``generator`` in module order:
     Linear trunc-normal(0.02) with zero bias; Conv normal(0, sqrt(2/fan_out))
-    with fan_out divided by groups, zero bias; the classifier normal(0.01);
-    norms weight 1, bias 0, running mean 0, running var 1."""
+    with fan_out divided by groups, zero bias; the classifiers (DLV2Head's
+    dilated branches too) normal(0.01); norms weight 1, bias 0, running
+    mean 0, running var 1."""
     from .daformer import Classifier
+    from .heads import DLV2Branch
     for m in module.modules():
         if isinstance(m, nn.Linear):
             nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04,
                                   generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, Classifier):
+        elif isinstance(m, (Classifier, DLV2Branch)):
             m.weight.normal_(0.0, 0.01, generator=generator)
             m.bias.zero_()
         elif isinstance(m, nn.Conv2d):

@@ -1,14 +1,19 @@
 """DAFormer decode heads (mirrors cmda_tpu.models.daformer), NCHW.
 
 Per-scale linear embed to ``embed_dim`` channels, bilinear upsample of every
-scale to the stride-4 grid, channel concat in scale order, a depthwise-
-separable ASPP (dilations 1/6/12/18, BN+ReLU, no image pool) with a 3x3
-bottleneck, then Dropout2d + a 1x1 classifier in float32.
+scale to the stride-4 grid, channel concat in scale order, a fuse layer of
+``fusion_type`` ('aspp': the depthwise-separable ASPP, dilations 1/6/12/18,
+BN+ReLU, no image pool, with a 3x3 bottleneck; 'aspp_nonsep': the same with
+plain convs; 'conv': a 1x1 conv+BN+ReLU; 'rawconv_and_aspp': a 3x3 conv with
+bias, then the separable ASPP; 'isa': an interlaced sparse self-attention
+layer), then Dropout2d + a 1x1 classifier in float32.
 
 Parameter names are the reference mmseg DAFormerHeadFusion keys:
 ``embed_layers_image.{i}.proj``, ``fuse_layer_image.aspp_modules.{i}``
 (``.conv``/``.bn``, or ``.depthwise_conv``/``.pointwise_conv``),
-``fuse_layer_image.bottleneck`` and ``conv_seg``.
+``fuse_layer_image.bottleneck`` and ``conv_seg``; the unshared decoders of
+``share='none'`` are ``embed_layers_events`` / ``fuse_layer_events`` and
+``embed_layers_fusion`` / ``fuse_layer_fusion``.
 
 Training separates two flags, as the JAX package does: ``train`` turns on
 the classifier's Dropout2d (its channel masks are passed in), ``bn_train``
@@ -24,7 +29,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from .common import ConvBNReLU, Linear, divide_by
+from .common import Conv2d, ConvBNReLU, Linear, divide_by
 from ..ops.resize import upsample_bilinear_nchw
 
 
@@ -36,7 +41,7 @@ class DAFormerHeadConfig:
     num_classes: int = 19
     dropout_ratio: float = 0.1
     aspp_dilations: Sequence[int] = (1, 6, 12, 18)
-    fusion_type: str = "aspp"  # only 'aspp' (sepaspp) is ported
+    fusion_type: str = "aspp"  # one of FUSION_TYPES
 
 
 class SepConvBNReLU(nn.Module):
@@ -59,14 +64,16 @@ class SepConvBNReLU(nn.Module):
 
 
 class SepASPP(nn.Module):
-    """Depthwise-separable ASPP + 3x3 bottleneck (ASPPWrapper, pool=False)."""
+    """Depthwise-separable ASPP + 3x3 bottleneck (ASPPWrapper, pool=False);
+    ``sep=False`` takes plain dilated convs."""
 
     def __init__(self, in_channels: int, channels: int,
-                 dilations: Sequence[int] = (1, 6, 12, 18)):
+                 dilations: Sequence[int] = (1, 6, 12, 18), sep: bool = True):
         super().__init__()
         self.aspp_modules = nn.ModuleList([
             ConvBNReLU(in_channels, channels, 1) if d == 1
-            else SepConvBNReLU(in_channels, channels, 3, dilation=d)
+            else SepConvBNReLU(in_channels, channels, 3, dilation=d) if sep
+            else ConvBNReLU(in_channels, channels, 3, dilation=d)
             for d in dilations])
         self.bottleneck = ConvBNReLU(len(dilations) * channels, channels, 3)
 
@@ -76,6 +83,15 @@ class SepASPP(nn.Module):
             torch.cat([m(x, bn_train, update, groups)
                        for m in self.aspp_modules], dim=1),
             bn_train, update, groups)
+
+
+class PlainASPP(SepASPP):
+    """Non-separable ASPP + 3x3 bottleneck (ASPPWrapper sep=False): a 1x1
+    conv at dilation 1, dilated 3x3 convs elsewhere, each conv+BN+ReLU."""
+
+    def __init__(self, in_channels: int, channels: int,
+                 dilations: Sequence[int] = (1, 6, 12, 18)):
+        super().__init__(in_channels, channels, dilations, sep=False)
 
 
 class MLPEmbed(nn.Module):
@@ -89,35 +105,75 @@ class MLPEmbed(nn.Module):
         return self.proj(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
+FUSION_TYPES = ("aspp", "aspp_nonsep", "conv", "rawconv_and_aspp", "isa")
+
+
+def fuse_layer(cfg: "DAFormerHeadConfig", in_channels: int) -> nn.Module:
+    """The decoder's fuse layer of ``cfg.fusion_type``: 'aspp' the
+    separable ASPP, 'aspp_nonsep' the plain one, 'conv' a 1x1
+    conv+BN+ReLU, 'rawconv_and_aspp' the separable ASPP after the raw 3x3
+    conv (built beside it), 'isa' an ``ISALayer(channels, channels // 2)``."""
+    kind, ch = cfg.fusion_type, cfg.channels
+    if kind in ("aspp", "rawconv_and_aspp"):
+        return SepASPP(ch if kind == "rawconv_and_aspp" else in_channels,
+                       ch, cfg.aspp_dilations)
+    if kind == "aspp_nonsep":
+        return PlainASPP(in_channels, ch, cfg.aspp_dilations)
+    if kind == "conv":
+        return ConvBNReLU(in_channels, ch, 1)
+    if kind == "isa":
+        from .heads import ISALayer
+        return ISALayer(in_channels, ch, isa_channels=ch // 2)
+    raise ValueError(f"fusion_type {kind!r} (one of {FUSION_TYPES})")
+
+
 class DAFormerDecoder(nn.Module):
     """Embed + upsample + concat + fuse -> pre-classifier features.
 
     ``stream`` suffixes the parameter names the way the reference fusion
-    head does (``embed_layers_image``, ``fuse_layer_image``)."""
+    head does (``embed_layers_image``, ``fuse_layer_image``; and
+    ``fuse_rawconv_image`` for 'rawconv_and_aspp'); ``add_stream`` builds
+    another stream's layers beside them (the unshared decoders of
+    ``share='none'``)."""
 
     def __init__(self, cfg: DAFormerHeadConfig, stream: str | None = None):
         super().__init__()
-        if cfg.fusion_type != "aspp":
-            raise NotImplementedError(
-                f"fusion_type {cfg.fusion_type!r} is not ported (ROADMAP "
-                "queue A item 6)")
+        self.fusion_type = cfg.fusion_type
+        self._names = {}
+        self.add_stream(cfg, stream)
+
+    def add_stream(self, cfg: DAFormerHeadConfig, stream: str | None):
+        """Build the layers of ``stream``'s decoder, named by it."""
         sfx = f"_{stream}" if stream else ""
-        self._embed_name, self._fuse_name = f"embed_layers{sfx}", f"fuse_layer{sfx}"
-        setattr(self, self._embed_name, nn.ModuleList([
+        names = dict(embed=f"embed_layers{sfx}", fuse=f"fuse_layer{sfx}",
+                     raw=f"fuse_rawconv{sfx}")
+        cat = cfg.embed_dim * len(cfg.in_channels)
+        setattr(self, names["embed"], nn.ModuleList([
             MLPEmbed(c, cfg.embed_dim) for c in cfg.in_channels]))
-        setattr(self, self._fuse_name, SepASPP(
-            cfg.embed_dim * len(cfg.in_channels), cfg.channels,
-            cfg.aspp_dilations))
+        if cfg.fusion_type == "rawconv_and_aspp":
+            setattr(self, names["raw"], Conv2d(cat, cfg.channels, 3,
+                                               padding=1))
+        setattr(self, names["fuse"], fuse_layer(cfg, cat))
+        self._names[stream] = names
 
     def decode(self, feats, bn_train: bool = False, update: bool = True,
-               groups: int = 1):
+               groups: int = 1, stream: str | None = None):
         """``groups``: the feats hold that many streams stacked along the
-        batch, each normalised by its own batch statistics."""
+        batch, each normalised by its own batch statistics (not with
+        'isa', whose attention normalises the stack as one). ``stream``
+        picks the decoder (default the first built)."""
+        names = self._names[stream if stream in self._names
+                            else next(iter(self._names))]
         target = tuple(feats[0].shape[2:])
         embeds = [upsample_bilinear_nchw(layer(f), target)
-                  for layer, f in zip(getattr(self, self._embed_name), feats)]
-        return getattr(self, self._fuse_name)(torch.cat(embeds, dim=1),
-                                              bn_train, update, groups)
+                  for layer, f in zip(getattr(self, names["embed"]), feats)]
+        x = torch.cat(embeds, dim=1)
+        if self.fusion_type == "rawconv_and_aspp":
+            x = getattr(self, names["raw"])(x)
+        fuse = getattr(self, names["fuse"])
+        if self.fusion_type == "isa":
+            return fuse(x, bn_train, update)
+        return fuse(x, bn_train, update, groups)
 
     def forward(self, feats, bn_train: bool = False, update: bool = True):
         return self.decode(feats, bn_train, update)
@@ -171,8 +227,11 @@ class DAFormerHead(DAFormerDecoder):
 
 
 class DAFormerFusionHead(DAFormerDecoder):
-    """Multi-stream head over the {image, events, fusion, ISR} pyramids with
-    ``share='full'``: one decoder for every stream, and one classifier, or
+    """Multi-stream head over the {image, events, fusion, ISR} pyramids.
+    ``share`` (``model.share_decoder``): 'full' one decoder for every
+    stream; 'half' the same decoder, each stream decoded on its own (never
+    stacked); 'none' three decoders, the ISR stream through the events
+    one, each built from ``cfg.in_channels``. One classifier, or
     with ``split_cls`` three: ``conv_seg`` for the image stream,
     ``conv_seg_events`` (``events_classes`` wide, default ``num_classes``)
     for the events and ISR streams and ``conv_seg_fusion`` for the fusion
@@ -184,17 +243,20 @@ class DAFormerFusionHead(DAFormerDecoder):
     one batch stacked along dim 0 and split back, which equals the
     per-stream loop; with ``batched_train`` (``model.head_batched_train``)
     also with batch statistics, each stream a group of the grouped
-    ``StreamBatchNorm``. With ``split_cls`` the streams always take the
-    per-stream loop, as in the JAX head."""
+    ``StreamBatchNorm``. With ``split_cls``, ``share`` other than 'full' or
+    the 'isa' fuse type the streams always take the per-stream loop, as in
+    the JAX head."""
 
     def __init__(self, cfg: DAFormerHeadConfig, share: str = "full",
                  split_cls: bool = False, events_classes: int | None = None,
                  batched_train: bool = False, with_fusion: bool = True):
-        if share != "full":
-            raise NotImplementedError(
-                f"share={share!r}: only share='full' is ported (ROADMAP "
-                "queue A item 6)")
+        if share not in ("full", "half", "none"):
+            raise ValueError(f"share={share!r} (one of full, half, none)")
         super().__init__(cfg, stream="image")
+        self.share = share
+        if share == "none":
+            self.add_stream(cfg, "events")
+            self.add_stream(cfg, "fusion")
         self.conv_seg = Classifier(cfg.channels, cfg.num_classes,
                                    cfg.dropout_ratio)
         self.split_cls = split_cls
@@ -246,7 +308,8 @@ class DAFormerFusionHead(DAFormerDecoder):
         out = {k: None for _, k, _ in plan}
         if train and self.conv_seg.dropout_ratio > 0 and dropout_keep is None:
             raise ValueError("train=True needs the Dropout2d keep-masks")
-        if (len(active) > 1 and not self.split_cls
+        if (len(active) > 1 and not self.split_cls and self.share == "full"
+                and self.fusion_type != "isa"
                 and (not bn or self.batched_train)):
             n = len(active)
             stacked = [torch.cat([f[i] for _, _, f in active], dim=0)
@@ -262,6 +325,8 @@ class DAFormerFusionHead(DAFormerDecoder):
         for j, (name, key, f) in enumerate(active):
             keep = (dropout_keep[j] if train and dropout_keep is not None
                     else None)
-            out[key] = self.classifier(name)(self.decode(f, bn, bn_update),
-                                             keep)
+            # unshared: the ISR stream decodes through the events decoder
+            dec = "events" if name == "isr" else name
+            out[key] = self.classifier(name)(
+                self.decode(f, bn, bn_update, stream=dec), keep)
         return out

@@ -30,7 +30,11 @@ uniforms, which the JAX forward draws from the module's own key, so one
 ``EncoderDecoder`` is the single-backbone segmentor (one MiT, the
 single-stream DAFormer head): the frozen ImageNet encoder of the feature
 distance, and the model of the image-only trainers (OrgDACS, DACSImage),
-with a training forward of its own.
+with a training forward of its own. ``EventsEncoderDecoder`` feeds it the
+image and events concatenated (early fusion); ``GenericEncoderDecoder`` is
+any backbone (MiT or a ResNet of ``models/resnet.py``), optional neck and
+head (``models/heads.py``, or a DAFormer head): the legacy architecture
+grid's model and OrgDACS's ``model=``.
 """
 from __future__ import annotations
 
@@ -185,6 +189,9 @@ class FusionEncoderDecoder(nn.Module):
             raise ValueError(f"a training forward in mode {mode!r} needs "
                              "ForwardDraws.fusion_isr")
         d = draws if draws is not None else ForwardDraws()
+        # the fusion modules' BatchNorms follow the forward's train (the
+        # JAX modules' ``train``), not the head's bn_train
+        train = draws is not None
         f_image = (self.backbone_image(image, d.image)
                    if image is not None else None)
         if double:
@@ -203,13 +210,15 @@ class FusionEncoderDecoder(nn.Module):
             f_fusion = None
         elif mode == "fusion_isr":
             other = f_events if f_isr is None else f_isr
-            f_fusion = self.fusion_isr_module(f_image, other, d.fusion_isr)
+            f_fusion = self.fusion_isr_module(f_image, other, d.fusion_isr,
+                                              train)
         elif mode == "fusion_all":
-            f_a = self.fusion_isr_module(f_image, f_isr, d.fusion_isr)
-            f_b = self.fusion_module(f_image, f_events, d.fusion)
+            f_a = self.fusion_isr_module(f_image, f_isr, d.fusion_isr, train)
+            f_b = self.fusion_module(f_image, f_events, d.fusion, train)
             f_fusion = [(a + b) / 2 for a, b in zip(f_a, f_b)]
         elif mode == "default":
-            f_fusion = (self.fusion_module(f_image, f_events, d.fusion)
+            f_fusion = (self.fusion_module(f_image, f_events, d.fusion,
+                                           train)
                         if (self.fusion_module is not None
                             and f_events is not None) else None)
         else:
@@ -308,6 +317,9 @@ class EncoderDecoder(nn.Module):
     def extract_feat(self, img, draws: ForwardDraws | None = None):
         """NHWC image -> the backbone's four NCHW feature maps (eval, or
         with ``draws``' drop-path uniforms)."""
+        return self._encode(img, draws)
+
+    def _encode(self, img, draws):
         return self.backbone(_nchw(img, self.dtype),
                              draws.image if draws is not None else None)
 
@@ -317,8 +329,128 @@ class EncoderDecoder(nn.Module):
         feature maps). ``train`` needs ``draws``."""
         if train and draws is None:
             raise ValueError("train=True needs the forward's draws")
-        feats = self.extract_feat(img, draws if train else None)
+        feats = self._encode(img, draws if train else None)
         keep = draws.dropout_keep[0] if train else None
+        logits = self.decode_head(feats, train, keep)
+        return (resize_bilinear(logits.permute(0, 2, 3, 1), img.shape[1:3]),
+                feats)
+
+    def forward(self, img):
+        """NHWC image -> NHWC float32 logits at the input size (eval)."""
+        return self.forward_with_features(img)[0]
+
+
+class EventsEncoderDecoder(EncoderDecoder):
+    """Early fusion (mirrors cmda_tpu.models.segmentor.EventsEncoderDecoder):
+    the image and the events concatenated along channels into ONE MiT
+    (``in_chans`` = their channels together, 6 for a 3-channel image and
+    3-channel events) and the single-stream DAFormer head. ``forward`` is
+    eval; ``forward_with_features(image, events, train=True, draws=...)``
+    the training forward, with ``EncoderDecoder``'s draws."""
+
+    def __init__(self, cfg: SegmentorConfig = SegmentorConfig(),
+                 dtype: str = "float32", in_chans: int = 6):
+        nn.Module.__init__(self)
+        self.cfg = cfg
+        self.dtype = DTYPES[dtype]
+        mit_cfg = MIT_VARIANTS[cfg.backbone]
+        mit_cfg = type(mit_cfg)(**{**mit_cfg.__dict__,
+                                   "drop_path_rate": cfg.drop_path_rate})
+        self.backbone = MixVisionTransformer(mit_cfg, in_chans=in_chans,
+                                             remat=cfg.remat)
+        self.decode_head = DAFormerHead(cfg.head)
+
+    def extract_feat(self, image, events, draws: ForwardDraws | None = None):
+        """NHWC image and events -> the backbone's four NCHW maps."""
+        return self._encode(torch.cat([image, events], dim=-1), draws)
+
+    def forward_with_features(self, image, events, train: bool = False,
+                              draws: ForwardDraws | None = None):
+        return super().forward_with_features(
+            torch.cat([image, events], dim=-1), train, draws)
+
+    def forward(self, image, events):
+        """NHWC image and events -> NHWC float32 logits at the input size
+        (eval)."""
+        return self.forward_with_features(image, events)[0]
+
+
+class GenericEncoderDecoder(nn.Module):
+    """Any (backbone[, neck], head) pipeline -> logits at the input size
+    (mirrors cmda_tpu.models.segmentor.GenericEncoderDecoder): the legacy
+    architecture grid's ResNet / ResNeXt / ResNeSt / MiT x DLV2 / DLV3+ /
+    DA / ISA / SegFormer / UPer / DAFormer combos, the 'sfa_' ones with the
+    SegFormerAdapter neck, float32.
+
+    ``forward_with_features(img, train=True, draws=...)`` is the training
+    forward (OrgDACS's and the supervised grid step's): BatchNorm on batch
+    statistics that move the running statistics; a MiT backbone's
+    drop-path uniforms (``draws.image``) and the classifier's Dropout2d
+    keep-masks (``draws.dropout_keep`` [1, B, C]) where the model has them
+    (``new_draws``). Eval (``forward``, ``extract_feat``) runs BatchNorm on
+    the running statistics.
+
+    The JAX module names its head ``head``, not ``decode_head``, so the JAX
+    optimizer trains it at the backbone's lr; OrgDACS builds its optimizer
+    with ``make_optimizer(head=False)`` for such a model, where the head
+    keeps the reference's ``decode_head`` name."""
+
+    def __init__(self, backbone: nn.Module, head: nn.Module,
+                 neck: nn.Module | None = None):
+        super().__init__()
+        self.backbone = backbone
+        self.decode_head = head
+        self.neck = neck
+        self.dtype = torch.float32
+
+    @property
+    def _mit(self) -> bool:
+        return isinstance(self.backbone, MixVisionTransformer)
+
+    def _dropout(self):
+        cls = getattr(self.decode_head, "conv_seg", None)
+        return (None if cls is None or cls.dropout_ratio == 0
+                else (cls.dropout_ratio, cls.in_channels))
+
+    def new_draws(self, batch: int, *, generator: torch.Generator,
+                  device: torch.device) -> ForwardDraws:
+        """Fresh ``ForwardDraws`` of a training forward at ``batch`` (None
+        where the model draws nothing)."""
+        def uniform(*shape):
+            return torch.rand(shape, generator=generator, device=device)
+        image = ([uniform(d, 2, batch) for d in self.backbone.cfg.depths]
+                 if self._mit else None)
+        drop = self._dropout()
+        keep = (uniform(1, batch, drop[1]) < 1.0 - drop[0]
+                if drop is not None else None)
+        return ForwardDraws(image=image, dropout_keep=keep)
+
+    def extract_feat(self, img, draws: ForwardDraws | None = None,
+                     train: bool = False):
+        """NHWC image -> the backbone's (and neck's) NCHW maps; eval unless
+        ``train``."""
+        x = _nchw(img, self.dtype)
+        if self._mit:
+            feats = self.backbone(x, draws.image if train and draws is not None
+                                  else None)
+        else:
+            feats = self.backbone(x, train)
+        return self.neck(feats) if self.neck is not None else feats
+
+    def forward_with_features(self, img, train: bool = False,
+                              draws: ForwardDraws | None = None):
+        """NHWC image -> (NHWC float32 logits at the input size, the NCHW
+        maps)."""
+        if train:
+            d = draws if draws is not None else ForwardDraws()
+            if ((self._mit and self.backbone.cfg.drop_path_rate > 0
+                 and d.image is None)
+                    or (self._dropout() is not None
+                        and d.dropout_keep is None)):
+                raise ValueError("train=True needs the forward's draws")
+        feats = self.extract_feat(img, draws, train)
+        keep = (draws.dropout_keep[0] if train and draws is not None
+                and draws.dropout_keep is not None else None)
         logits = self.decode_head(feats, train, keep)
         return (resize_bilinear(logits.permute(0, 2, 3, 1), img.shape[1:3]),
                 feats)

@@ -12,6 +12,9 @@
   with one label and weight map, one value per stream.
 * ``pixel_accuracy``: 100 * #(argmax == label) / numel(label), ignored
   pixels in the denominator (they can never match).
+* ``charbonnier_loss``, ``weighted_binary_cross_entropy`` and
+  ``ohem_weights``: the robust L1, the one-hot BCE with logits and the OHEM
+  pixel weights of the reference's loss and sampler zoo.
 
 Logits are NHWC [B, H, W, C]; labels [B, H, W] integers.
 """
@@ -73,3 +76,48 @@ def accuracy_of_labels(pred: torch.Tensor, labels: torch.Tensor,
     """``pixel_accuracy`` of already-computed predicted labels."""
     correct = ((pred == labels) & (labels != ignore_index)).sum()
     return 100.0 * correct.float() / labels.numel()
+
+
+def charbonnier_loss(pred: torch.Tensor, target: torch.Tensor,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """Robust L1 (Charbonnier): mean(sqrt(diff^2 + eps^2)) in float32."""
+    diff = pred.float() - target.float()
+    return torch.sqrt(diff * diff + eps * eps).mean()
+
+
+def weighted_binary_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                  weight: torch.Tensor | None = None,
+                                  ignore_index: int = 255) -> torch.Tensor:
+    """BCE with logits against the one-hot labels (the reference's
+    binary_cross_entropy path): ignored pixels contribute 0, times the
+    pixel weight, the mean over all B*H*W*C elements."""
+    valid = labels != ignore_index
+    onehot = torch.nn.functional.one_hot(
+        torch.where(valid, labels, 0).long(), logits.shape[-1]).float()
+    x = logits.float()
+    loss = x.clamp(min=0) - x * onehot + torch.log1p(torch.exp(-x.abs()))
+    loss = loss * valid[..., None].float()
+    if weight is not None:
+        loss = loss * weight[..., None].float()
+    return loss.mean()
+
+
+def ohem_weights(logits: torch.Tensor, labels: torch.Tensor, *,
+                 thresh: float | None = 0.7, min_kept: int = 100000,
+                 ignore_index: int = 255) -> torch.Tensor:
+    """Online hard example mining pixel weights (the reference's
+    OHEMPixelSampler): per image, the valid pixels whose probability of
+    their label is at most max(the ``min_kept``-th smallest such
+    probability, ``thresh``). A 0/1 float32 map [B, H, W]."""
+    b = logits.shape[0]
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    prob = torch.softmax(logits.float(), dim=-1)
+    gt_prob = prob.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    gt_prob = torch.where(valid, gt_prob, torch.inf)
+    flat = gt_prob.reshape(b, -1)
+    k = min(min_kept, flat.shape[1])
+    kth = torch.sort(flat, dim=1).values[:, k - 1]
+    cutoff = kth.clamp(min=thresh if thresh is not None else 0.0)
+    sel = flat <= cutoff[:, None]
+    return (sel.reshape(labels.shape) & valid).float()

@@ -6,14 +6,17 @@ nan for classes absent from both pred and gt.  The DSEC evaluation reports
 18-class mIoU by converting the 19-class mean (reference README.md:220-224:
 ``miou_18 = miou_19 * 19 / 18`` since class 'train' never appears).
 
-A numpy copy of cmda_tpu.ops.metrics (the host half; the on-device
-histogram variant waits for a later slice).
+A numpy copy of cmda_tpu.ops.metrics, and ``intersect_and_union_torch``,
+its on-device histogram variant (the JAX package's
+``intersect_and_union_jnp``): the same integer histograms as the numpy
+``intersect_and_union``, as int64 tensors on the inputs' device.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 
 import numpy as np
+import torch
 
 
 def intersect_and_union(pred, label, num_classes: int, ignore_index: int = 255):
@@ -30,6 +33,24 @@ def intersect_and_union(pred, label, num_classes: int, ignore_index: int = 255):
     area_union = area_pred + area_label - area_intersect
     return (area_intersect.astype(np.float64), area_union.astype(np.float64),
             area_pred.astype(np.float64), area_label.astype(np.float64))
+
+
+def intersect_and_union_torch(pred: torch.Tensor, label: torch.Tensor,
+                              num_classes: int, ignore_index: int = 255):
+    """(intersect, union, pred_hist, label_hist) [num_classes] int64 of
+    ``pred`` and ``label`` (any equal shapes), on their device: ignored
+    pixels go to two spare bins past the classes, which are dropped."""
+    mask = label != ignore_index
+    safe_label = torch.where(mask, label, num_classes).long().reshape(-1)
+    safe_pred = torch.where(mask, pred, num_classes + 1).long().reshape(-1)
+    inter = torch.where(safe_pred == safe_label, safe_pred,
+                        num_classes)
+    n = num_classes + 2
+    area_intersect = torch.bincount(inter, minlength=n)[:num_classes]
+    area_pred = torch.bincount(safe_pred, minlength=n)[:num_classes]
+    area_label = torch.bincount(safe_label, minlength=n)[:num_classes]
+    return (area_intersect, area_pred + area_label - area_intersect,
+            area_pred, area_label)
 
 
 def eval_metrics(total_intersect, total_union, total_pred, total_label,

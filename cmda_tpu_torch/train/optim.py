@@ -4,8 +4,12 @@
   linear warmup that multiplies the regular lr by a factor ramping from
   ``warmup_ratio`` to 1 over ``warmup_iters``.
 * ``make_optimizer``: ``torch.optim.AdamW`` with the JAX package's param
-  groups: decode-head parameters at lr x ``head_lr_mult``, no weight decay
-  on norm parameters (LayerNorm / BN weight and bias). Four torch groups
+  groups, decided by module: the parameters of the model's ``decode_head``
+  at lr x ``head_lr_mult`` (unless ``head=False``: OrgDACS's legacy
+  GenericEncoderDecoder, whose JAX head is named ``head`` and so takes the
+  backbone's lr), no weight decay on norm parameters: those of norm
+  modules (LayerNorm / BatchNorm / GroupNorm weight and bias) and those
+  the JAX rule picks by name on the flax path. Four torch groups
   carry the (head, backbone) x (decay, no decay) split. As in optax's
   ``adamw``, the bias-correction count starts at 1 and eps is outside the
   square root; ``set_lr(optimizer, schedules, step)`` gives update
@@ -52,8 +56,10 @@ def is_norm_param(name: str) -> bool:
                for seg in name.split(".")[:-1])
 
 
-def is_head_param(name: str) -> bool:
-    return name.split(".")[0] == "decode_head"
+# the JAX name rule picks the parameters of these modules, whatever the
+# port names them (mmcv's ``bn1``, ``stem.1``, ``downsample.1``)
+_NORMS = (torch.nn.modules.batchnorm._NormBase, torch.nn.LayerNorm,
+          torch.nn.GroupNorm)
 
 
 def make_schedules(cfg) -> dict:
@@ -167,18 +173,24 @@ class LowPrecisionAdamW(torch.optim.Optimizer):
                     st[k] = st[k].to(self.moment_dtype)
 
 
-def make_optimizer(model: torch.nn.Module, cfg) -> torch.optim.Optimizer:
+def make_optimizer(model: torch.nn.Module, cfg, *,
+                   head: bool = True) -> torch.optim.Optimizer:
     """AdamW over ``model``'s parameters; ``cfg`` is an OptimConfig:
     ``torch.optim.AdamW`` with float32 moments, ``LowPrecisionAdamW`` with
     ``moment_dtype='bfloat16'``. Each group names its schedule under
-    ``'part'`` ('backbone' or 'head'). ``cfg.grad_clip`` is applied by the
-    caller (``clip_grad_global_norm_``)."""
+    ``'part'`` ('backbone' or 'head'; with ``head=False`` the decode head
+    is in 'backbone'). ``cfg.grad_clip`` is applied by the caller
+    (``clip_grad_global_norm_``)."""
     if cfg.moment_dtype not in (None, "float32", "bfloat16"):
         raise ValueError(f"moment_dtype={cfg.moment_dtype!r}")
+    norm = {id(p) for m in model.modules() if isinstance(m, _NORMS)
+            for p in m.parameters(recurse=False)}
+    heads = ({id(p) for p in model.decode_head.parameters()} if head
+             else set())
     groups = {}
     for name, p in model.named_parameters():
-        key = ("head" if is_head_param(name) else "backbone",
-               not is_norm_param(name))
+        key = ("head" if id(p) in heads else "backbone",
+               id(p) not in norm and not is_norm_param(name))
         groups.setdefault(key, []).append(p)
     param_groups = [{"params": params, "part": part,
                      "weight_decay": cfg.weight_decay if decay else 0.0}

@@ -20,11 +20,12 @@ from ..apis import resolve_device
 from ..config import RunConfig
 from ..data.wire import decode_wire
 from ..models.cyclegan import frozen_generator
+from ..models.mit import MIT_VARIANTS
 from ..models.segmentor import ForwardDraws
 from ..ops.losses import pixel_accuracy, weighted_cross_entropy
 from ..train.optim import make_optimizer, make_schedules
 from .dacs import DACSTrainState, _to_device
-from .org_dacs import build_encoder_decoder, check_mit_model, optimizer_step
+from .org_dacs import build_encoder_decoder, optimizer_step
 
 TRANSFER_DIRECTIONS = (None, "isrd2isrn", "isrn2isrd")
 
@@ -38,7 +39,11 @@ class DACSImageTrainer:
         if transfer_direction not in TRANSFER_DIRECTIONS:
             raise ValueError(f"transfer_direction={transfer_direction!r} is "
                              f"not one of {TRANSFER_DIRECTIONS}")
-        check_mit_model(cfg)
+        if cfg.model.backbone not in MIT_VARIANTS:
+            raise ValueError(
+                f"DACSImage runs the MiT EncoderDecoder of model.backbone, "
+                f"not {cfg.model.backbone!r} (the JAX DACSImageTrainer "
+                "builds that model only)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.transfer_direction = transfer_direction

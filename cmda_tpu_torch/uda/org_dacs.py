@@ -26,9 +26,13 @@ Its random values are an ``OrgDACSDraws``, handed in or drawn from a
 ``torch.Generator`` on the device seeded from (cfg.seed, step). The step
 launches none of the port's CUDA kernels.
 
-``model=`` / ``imnet_model=`` other than the MiT ``EncoderDecoder`` (the
-JAX trainer's ``GenericEncoderDecoder`` and the legacy ResNet grids) wait
-for ROADMAP queue A item 6 and raise ``NotImplementedError``.
+``model=`` / ``imnet_model=`` swap the MiT ``EncoderDecoder`` for any
+module with ``forward_with_features`` / ``extract_feat`` / ``new_draws``
+(a ``GenericEncoderDecoder``: the legacy grids' DeepLabV2 on ResNet-101 and
+the like), as the JAX trainer takes them; ``init_state`` moves them to the
+trainer's device and gives them the reference random init from the seed.
+A frozen ImageNet twin with BatchNorm runs on its running statistics, its
+buffers loaded whole with its weights.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from ..ops.losses import pixel_accuracy, weighted_cross_entropy
 from ..ops.normalize import IMAGENET_MEAN, IMAGENET_STD
 from ..train.optim import (clip_grad_global_norm_, make_optimizer,
                            make_schedules, set_lr, zero_missing_grads)
+from ..utils.weights import load_pretrained_backbone
 from .dacs import (DACSTrainState, _to_device, ema_update, frozen_imnet,
                    imnet_feature_distance)
 from .transforms import pseudo_label_and_weight
@@ -79,15 +84,14 @@ class OrgDACSDraws:
             sigma=self.sigma.to(device), fwd=self.fwd.to(device))
 
 
-def check_mit_model(cfg: RunConfig, model=None, imnet_model=None):
-    """Only the MiT ``EncoderDecoder`` is ported for the image-only
-    trainers."""
-    if (model is not None or imnet_model is not None
-            or cfg.model.backbone not in MIT_VARIANTS):
-        raise NotImplementedError(
-            "the image-only trainers run the MiT EncoderDecoder only; "
-            "GenericEncoderDecoder and the legacy ResNet grids are not "
-            "ported (ROADMAP queue A item 6)")
+def _seeded(model: torch.nn.Module, device, seed: int) -> torch.nn.Module:
+    """``model`` on ``device`` with the reference random init from
+    ``seed``, in eval mode."""
+    model = model.to(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    init_weights(model, gen)
+    return model.eval()
 
 
 def build_encoder_decoder(cfg: RunConfig, device, seed: int) -> EncoderDecoder:
@@ -95,10 +99,7 @@ def build_encoder_decoder(cfg: RunConfig, device, seed: int) -> EncoderDecoder:
     random init from ``seed``, in eval mode."""
     with torch.device(device):
         model = EncoderDecoder(cfg.model, dtype=cfg.dtype)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    init_weights(model, gen)
-    return model.eval()
+    return _seeded(model, device, seed)
 
 
 def optimizer_step(cfg: RunConfig, state: DACSTrainState):
@@ -120,11 +121,25 @@ class OrgDACSTrainer:
     def __init__(self, cfg: RunConfig, device="cuda", *,
                  use_cyclegan_day2night: bool = False, model=None,
                  imnet_model=None):
-        check_mit_model(cfg, model, imnet_model)
+        """``model`` / ``imnet_model``: modules to train and to take the
+        feature distance from in place of the config's MiT
+        ``EncoderDecoder`` (``imnet_model`` only with the distance on, as
+        the JAX trainer builds it)."""
+        if model is None and cfg.model.backbone not in MIT_VARIANTS:
+            raise ValueError(
+                f"model.backbone {cfg.model.backbone!r} is not a MiT: pass "
+                "model= (a GenericEncoderDecoder) for another backbone")
+        for what, m in (("model", model), ("imnet_model", imnet_model)):
+            if m is not None and not all(hasattr(m, a) for a in (
+                    "forward_with_features", "extract_feat", "new_draws")):
+                raise TypeError(f"{what}= needs forward_with_features, "
+                                f"extract_feat and new_draws; got "
+                                f"{type(m).__name__}")
         if cfg.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype={cfg.dtype!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.model, self.imnet_model = model, imnet_model
         self.use_cyclegan_day2night = use_cyclegan_day2night
         self.enable_fdist = cfg.uda.imnet_feature_dist_lambda > 0
         # set to a list to collect (name, CUDA event, peak bytes, live
@@ -139,19 +154,35 @@ class OrgDACSTrainer:
         ``use_cyclegan_day2night`` the frozen 3-channel day -> night
         generator from ``cyclegan_state_dict`` or random from seed + 1; with
         the feature distance the frozen ImageNet encoder from
-        ``imnet_state_dict`` (without it the step raises)."""
+        ``imnet_state_dict`` (without it the step raises). With ``model=``
+        the student is that module, seeded; with ``imnet_model=`` the
+        frozen encoder is that module, random from seed + 2, its backbone
+        (parameters and BatchNorm buffers) from ``imnet_state_dict`` when
+        given (an mmcv ``resnet*_v1c`` state_dict for a ResNet)."""
         cfg = self.cfg
         seed = cfg.seed if seed is None else seed
-        model = build_encoder_decoder(cfg, self.device, seed)
+        model = (_seeded(copy.deepcopy(self.model), self.device, seed)
+                 if self.model is not None
+                 else build_encoder_decoder(cfg, self.device, seed))
         ema = copy.deepcopy(model).requires_grad_(False)
         cyclegan = (frozen_generator(cyclegan_state_dict, channels=3,
                                      device=self.device, seed=seed + 1)
                     if self.use_cyclegan_day2night else None)
-        imnet = (frozen_imnet(cfg, self.device, seed, imnet_state_dict)
-                 if self.enable_fdist and imnet_state_dict is not None
-                 else None)
+        if not self.enable_fdist:
+            imnet = None
+        elif self.imnet_model is not None:
+            imnet = _seeded(copy.deepcopy(self.imnet_model), self.device,
+                            seed + 2)
+            if imnet_state_dict is not None:
+                load_pretrained_backbone(imnet.backbone, imnet_state_dict)
+            imnet.requires_grad_(False)
+        else:
+            imnet = (frozen_imnet(cfg, self.device, seed, imnet_state_dict)
+                     if imnet_state_dict is not None else None)
         return DACSTrainState(model=model, ema_model=ema,
-                              optimizer=make_optimizer(model, cfg.optim),
+                              optimizer=make_optimizer(
+                                  model, cfg.optim,
+                                  head=self.model is None),
                               cyclegan=cyclegan,
                               schedules=make_schedules(cfg.optim),
                               imnet=imnet)

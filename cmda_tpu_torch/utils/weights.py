@@ -9,7 +9,15 @@
       Conv        [kh, kw, in, out] -> Conv2d weight [out, in, kh, kw]
       Depthwise   [k, k, 1, C]    -> Conv2d weight [C, 1, k, k]
   Every model key must be filled and every tree leaf used, at the right
-  shape; anything else raises.
+  shape; anything else raises. The model zoo's modules map the same way:
+  a ResNet's flax ``stem{j}`` / ``layer{s}_{i}`` / ``conv{k}`` /
+  ``downsample`` ConvBNReLUs become mmcv's V1c keys (``stem.{3j}`` conv and
+  ``stem.{3j+1}`` BN, ``layer{s}.{i}.conv{k}`` / ``bn{k}``,
+  ``downsample.{0,1}``), a BasicBlock's ``conv{k}`` the same ``conv{k}`` /
+  ``bn{k}``, a GenericEncoderDecoder's ``head`` ``decode_head``, the
+  unshared decoders ``embed_layers_{events,fusion}`` and
+  ``fuse_layer_{events,fusion}``; a scalar parameter (DAHead's
+  ``pam_gamma``) keeps its name.
 * ``cyclegan_to_state_dict`` / ``discriminator_to_state_dict`` and their
   inverses: the JAX CycleGAN generator's and discriminators' flax trees
   (``conv_in`` .. ``conv_out``; ``conv0`` .. ``conv_out``) <-> the reference
@@ -38,6 +46,8 @@ _SEGMENT_RULES = (
     (re.compile(r"aspp(\d+)$"), lambda m: f"aspp_modules.{m[1]}"),
     (re.compile(r"sr_norm$"), lambda m: "norm"),
     (re.compile(r"fuse$"), lambda m: "fuse_layer_image"),
+    (re.compile(r"fuse_rawconv$"), lambda m: "fuse_rawconv_image"),
+    (re.compile(r"layer(\d)_(\d+)$"), lambda m: f"layer{m[1]}.{m[2]}"),
     (re.compile(r"depthwise$"), lambda m: "depthwise_conv"),
     (re.compile(r"pointwise$"), lambda m: "pointwise_conv"),
     (re.compile(r"(decoder_image|cls)$"), lambda m: None),   # flattened
@@ -46,13 +56,38 @@ _SEGMENT_RULES = (
 # head's ``decoder`` (the reference DAFormerHead's unsuffixed names) and
 # the split classifiers (``conv_seg_events`` / ``conv_seg_fusion``)
 _KEY_RULES = (
-    (re.compile(r"(^|\.)decoder\.embed_layers_image\."), r"\1embed_layers."),
-    (re.compile(r"(^|\.)decoder\.fuse_layer_image\."), r"\1fuse_layer."),
+    (re.compile(r"(^|\.)decoder\.(embed_layers|fuse_layer|fuse_rawconv)"
+                r"_image\."), r"\1\2."),
+    (re.compile(r"(^|\.)decoder_(events|fusion)\."
+                r"(embed_layers|fuse_layer|fuse_rawconv)_image\."),
+     r"\1\3_\2."),
     (re.compile(r"(^|\.)cls_(events|fusion)\.conv_seg\."), r"\1conv_seg_\2."),
+    # a GenericEncoderDecoder's head: SegFormerHead's unsuffixed names, and
+    # the reference's ``decode_head``
+    (re.compile(r"^head\.(embed_layers|fuse_layer)_image\."), r"head.\1."),
+    (re.compile(r"^head\."), "decode_head."),
+)
+# two flax segments -> one reference name: a ConvBNReLU's ``conv`` / ``bn``
+# under a ResNet stem conv, a numbered conv or a shortcut
+_PAIR_RULES = (
+    (re.compile(r"stem(\d)$"), {"conv": lambda m: f"stem.{3 * int(m[1])}",
+                                "bn": lambda m: f"stem.{3 * int(m[1]) + 1}"}),
+    (re.compile(r"conv(\d+)$"), {"conv": lambda m: f"conv{m[1]}",
+                                 "bn": lambda m: f"bn{m[1]}"}),
+    (re.compile(r"downsample$"), {"conv": lambda m: "downsample.0",
+                                  "bn": lambda m: "downsample.1"}),
 )
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
 _STACKED = re.compile(r"blocks(\d+)$")
+
+
+def _pair(seg: str, nxt: str | None):
+    for pat, by_next in _PAIR_RULES:
+        m = pat.match(seg)
+        if m and nxt in by_next:
+            return by_next[nxt](m)
+    return None
 
 
 def _rename(seg: str):
@@ -99,21 +134,34 @@ def _torch_keys(path: tuple, depth: int) -> list[str]:
     *mods, leaf = path
     stage = None
     names = []
-    for seg in mods:
+    i = 0
+    while i < len(mods):
+        seg = mods[i]
         m = _STACKED.match(seg)
         if m:
             stage = len(names)
             names.append(f"block{m[1]}")
+            i += 1
+            continue
+        pair = _pair(seg, mods[i + 1] if i + 1 < len(mods) else None)
+        if pair is not None:
+            names.append(pair)
+            i += 2
             continue
         new = _rename(seg)
         if new is not None:
             names.append(new)
-    if leaf not in _LEAF:
+        i += 1
+    if leaf.endswith("_gamma"):      # a scalar parameter of its module
+        last = leaf
+    elif leaf in _LEAF:
+        last = _LEAF[leaf]
+    else:
         raise KeyError(f"unmapped leaf {'/'.join(path)}")
     if stage is None:
-        return [_rewrite(".".join(names + [_LEAF[leaf]]))]
+        return [_rewrite(".".join(names + [last]))]
     return [_rewrite(".".join(names[:stage + 1] + [str(i)]
-                              + names[stage + 1:] + [_LEAF[leaf]]))
+                              + names[stage + 1:] + [last]))
             for i in range(depth)]
 
 
@@ -223,7 +271,7 @@ def load_jax_variables(model: nn.Module, variables) -> nn.Module:
     counterpart. Raises on a missing, left-over or mis-shaped entry."""
     sd = jax_to_state_dict(variables)
     for k, t in match_state_dict(model, sd).items():
-        t.copy_(torch.from_numpy(np.ascontiguousarray(sd[k])).to(t.dtype))
+        t.copy_(torch.from_numpy(np.array(sd[k])).to(t.dtype))
     return model
 
 
@@ -273,14 +321,17 @@ def load_torch_file(path: str) -> dict:
 
 @torch.no_grad()
 def load_pretrained_backbone(backbone: nn.Module, sd: dict) -> nn.Module:
-    """An NVlabs ``mit_bX.pth`` state_dict into a MixVisionTransformer: its
-    keys are the backbone's own; the ImageNet classifier (``head.*``) and
-    any other extra key are left out, a missing or mis-shaped key raises."""
-    own = backbone.state_dict()
+    """An NVlabs ``mit_bX.pth`` state_dict into a MixVisionTransformer, or
+    an mmcv ``resnet*_v1c`` one into a ResNetV1c: its keys are the
+    backbone's own; the ImageNet classifier (``head.*``, ``fc.*``) and any
+    other extra key are left out, BatchNorm's step counter may be missing,
+    any other missing or mis-shaped key raises."""
+    own = [k for k in backbone.state_dict()
+           if not k.endswith("num_batches_tracked")]
     missing = [k for k in own if k not in sd]
     if missing:
         raise KeyError(f"pretrained backbone lacks {missing[:8]}")
-    backbone.load_state_dict({k: sd[k] for k in own})
+    backbone.load_state_dict({k: sd[k] for k in own}, strict=False)
     return backbone
 
 
@@ -398,7 +449,9 @@ def load_jax_train_state(state, jax_state: dict):
     params, running BN statistics, the EMA params, the AdamW moments and
     counts of both groups, the step, the CycleGAN and the frozen ImageNet
     encoder's backbone (the part its feature distance reads; the JAX
-    ``imnet_params`` hold no BatchNorm statistics for its head). Raises on
+    ``imnet_params`` hold no BatchNorm statistics for its head), or the
+    whole encoder where ``imnet_params`` is a variables dict ({'params',
+    'batch_stats'}: a legacy twin with BatchNorm). Raises on
     any key left over or missing, or a parameter whose optimizer group
     differs."""
     load_jax_variables(state.model, {"params": jax_state["params"],
@@ -439,9 +492,13 @@ def load_jax_train_state(state, jax_state: dict):
         sd = cyclegan_to_state_dict(jax_state["cyclegan_params"])
         state.cyclegan.load_state_dict({k: torch.from_numpy(
             np.ascontiguousarray(v)) for k, v in sd.items()})
-    if state.imnet is not None and jax_state.get("imnet_params") is not None:
-        load_jax_variables(state.imnet.backbone,
-                           {"params": jax_state["imnet_params"]["backbone"]})
+    imnet = jax_state.get("imnet_params")
+    if state.imnet is not None and imnet is not None:
+        if "params" in imnet:   # a whole variables dict (a BN-bearing twin)
+            load_jax_variables(state.imnet, imnet)
+        else:
+            load_jax_variables(state.imnet.backbone,
+                               {"params": imnet["backbone"]})
     return state
 
 

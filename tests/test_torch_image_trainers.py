@@ -226,10 +226,14 @@ def test_pixel_contrast_loss_matches_jax():
 
 
 def test_image_trainers_refuse_other_models():
+    """OrgDACS takes a model= with the segmentor interface (a
+    GenericEncoderDecoder since the model zoo slice) and refuses other
+    modules; DACSImage runs the config's MiT EncoderDecoder only, as the
+    JAX DACSImageTrainer builds it."""
     cfg = _cfg(TC)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="forward_with_features"):
         OrgDACSTrainer(cfg, "cpu", model=torch.nn.Identity())
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="MiT EncoderDecoder"):
         DACSImageTrainer(TC.replace(cfg, model=TC.replace(
             cfg.model, backbone="resnet50")), "cpu")
     with pytest.raises(ValueError, match="transfer_direction"):

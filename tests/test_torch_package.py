@@ -52,7 +52,9 @@ def test_import_loads_no_jax_and_no_cmda_tpu():
             "cmda_tpu_torch.uda.org_dacs", "cmda_tpu_torch.uda.dacs_image",
             "cmda_tpu_torch.uda.prototype",
             "cmda_tpu_torch.tools.train_cyclegan",
-            "cmda_tpu_torch.tools.create_cityscapes_image_change"} <= set(
+            "cmda_tpu_torch.tools.create_cityscapes_image_change",
+            "cmda_tpu_torch.models.heads", "cmda_tpu_torch.models.resnet",
+            "cmda_tpu_torch.tools.run_experiments"} <= set(
                 loaded)
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad

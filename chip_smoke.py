@@ -5,11 +5,12 @@
     python3 chip_smoke.py --device-time ROOT
         # only the device and per-call times of every port kernel of the
         # checkout at ROOT, at the points the main paths launch them
-    python3 chip_smoke.py --phases isr,ce,train_types,image_trainers,model_zoo
-        # a short check of some phases alone (isr, ce: the kernel times and
-        # phase_isr, phase_ce; train_types: the cs2dz step of phase_train,
-        # then phase_train_types; image_trainers: phase_image_trainers;
-        # model_zoo: phase_model_zoo); prints no result line
+    python3 chip_smoke.py --phases isr,ce,train_types,image_trainers,model_zoo,tools
+        # some phases alone (isr, ce: the kernel times and phase_isr,
+        # phase_ce; train_types, image_trainers, model_zoo, tools:
+        # phase_train_types, phase_image_trainers, phase_model_zoo,
+        # phase_tools); prints each phase's launches as a JSON line, and no
+        # result line
 
 Phases, any failure exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -78,7 +79,8 @@ Phases, any failure exits non-zero:
      versions and the CPU, each run again with deterministic cuDNN (the
      forward bitwise); then the DarkZurich preset (cs2dz, MiT-b5, 512x512,
      batch 2, float32) as in 6 (launches CE 6 / dx 6 / argmax 3 / ISR 1 a
-     step) and as in 7 through ``--config cs2dz``; the kernels' cs2dz
+     step) and as in 7 through ``--config cs2dz`` at CUT_BACKBONE's
+     depth (b5's widths, 2 blocks a stage); the kernels' cs2dz
      points (the CE with the pseudo weight's cropped rows, the ISR
      rightdown with the DarkZurich parameters) are held and timed in 3 and
      5;
@@ -102,7 +104,7 @@ Phases, any failure exits non-zero:
      of the val frames: launches per step (CE 6 / dx 6 / argmax 3 / ISR 1)
      and per evaluation (argmax 1 a frame), finite losses, every RCS source
      load from a file listed for the class drawn; the iteration time beside
-     the bare cs2dz step and its synthetic run, data_time and its host
+     the bare cs2dz step, data_time and its host
      parts, evaluation seconds a frame, the busy share of 3 profiled
      iterations. The DSEC-Night corpus (``events.h5``) needs h5py, which
      the card's machine lacks, so its run is held on the CPU only
@@ -128,27 +130,28 @@ Phases, any failure exits non-zero:
      ``isr_another_fusion`` on an events and on an ISR coin,
      ``fuse_both_ice_and_e``, ``cs2dsec_image+events`` with
      ``isr_no_fusion`` on either coin, ``source_only`` and
-     ``without_events``, each from one b5 state against its plain-version
-     twin with its launches checked (CE 8 / 6 / 4 by train type and
-     passes, argmax 3 or 2 under source_only, ISR 1); the coin's host read
-     timed; the JAX package's step levers together
+     ``without_events``, each at CUT_BACKBONE's depth from one state
+     against its plain-version twin with its launches checked (CE 8 / 6 /
+     4 by train type and passes, argmax 3 or 2 under source_only, ISR 1);
+     the coin's host read timed at b5; the JAX package's step levers
+     together
      (``stacked_stream_ce``, ``head_batched_train``, ``shift_type='all'``
      and the fused resize: CE 0, argmax 3, ISR 0) against their twin and
      timed beside phase 6's flagship step; and ``tools.train.main
      --config cs2dsec --synthetic --fused-resize --set
-     uda.isr_another_fusion=true`` for 2 iterations;
+     uda.isr_another_fusion=true`` at CUT_BACKBONE for 1 iteration;
  14. the DACS trainer's DarkZurich ablations (``phase_train_types``): the
-     cs2dz MiT-b5 step at 512x512, batch 2, float32 with the JAX grid's
+     cs2dz step at CUT_BACKBONE's depth, 512x512, batch 2, float32 with
+     the JAX grid's
      model settings (no fusion module; split classifiers, 2 events classes
      for no-fusion): ``cs2dz_image+raw-isr_split`` with ``deflare_aug``,
      ``_no-fusion`` with edge labels (the CE kernel at C = 2), ``_no-fusion``
      with the [0.1, 0.9] edge class weight and the ImageNet feature
-     distance (a frozen b5 ``EncoderDecoder`` from a seeded ``.pth``), and
+     distance (a frozen ``EncoderDecoder`` from a seeded ``.pth``), and
      ``cs2dz_image+d2n-isr``, each against its plain-version twin with its
      launches checked, on DarkZurich frames written on the spot (deflared
-     and day pairs), timed beside phase_train's cs2dz step; then the
-     no-fusion type through ``tools.train.main --imnet`` for 2 iterations
-     and one evaluation; the CE kernels' C = 2 point is held and timed in
+     and day pairs), timed; then the no-fusion type through
+     ``tools.train.main --imnet`` for 1 iteration and one evaluation; the CE kernels' C = 2 point is held and timed in
      3 and 5;
  15. the CycleGAN workflow and the image-only trainers
      (``phase_image_trainers``): ``create_cityscapes_image_change --mode
@@ -171,7 +174,8 @@ Phases, any failure exits non-zero:
  16. the model zoo (``phase_model_zoo``): CMDA's fusion and decoder-sharing
      ablations through the train CLI's flags (``--fusion af``, ``--fusion
      caf``, ``--no_share_decoder``, ``--half_share_decoder``) on the
-     cs2dsec MiT-b5 step at 512x512, batch 2, float32, each against its
+     cs2dsec step at CUT_BACKBONE's depth (``--backbone``), 512x512, batch
+     2, float32, each against its
      plain-version twin with the flagship's launches (CE 8 / dx 8 / argmax
      3 / ISR 1, the kernels line's ``launches_model_zoo``) and one timed
      step; OrgDACS on DeepLabV2 / ResNet-101 at full depth
@@ -185,15 +189,38 @@ Phases, any failure exits non-zero:
      card and the CPU against a float64 CPU run, and a TF32 control step
      on the card that must fail the card's tolerance. The legacy paths
      launch none of the kernels;
- 17. one JSON line of per-kernel results, the nvidia-smi line, and last
+ 17. the run-operations tools (``phase_tools``): the custom ops'
+     dispatch against the wrappers' direct call (argmax, ISR; per call);
+     ``export_model`` of the cs2dsec fusion model at CUT_BACKBONE's depth
+     for CUDA (batch 1, 440x640, float32) with ``--verify``, then ``run``
+     on the artifact (the graph names the argmax op, each call launches
+     the kernel once); ``bench_infer``
+     (batch 1 and 8, slide), ``profile_step`` (batch 2, a traced step
+     read by ``analyze_trace``), ``bench_ce``, ``bench_scan`` (remat
+     none / full / dots); one b5 step with ``remat_policy='dots'``
+     against ``'full'`` from one state and draws (C4), then three timed
+     steps of each, alternating; a micro
+     4-iteration ``train_chunked`` run in 2 segment processes, merged,
+     its LR against an unbroken run's, its checkpoint through
+     ``checkpoint_tools`` publish / convert;
+ 18. one JSON line of per-kernel results, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
+
+The phases run one after another, each with the card to itself; a
+process a phase starts (17's segmented run) is waited for, stays in the
+script's process group and is killed when the script exits, a SIGTERM
+included. To stay inside the time limit, the repeated full-width checks
+run at CUT_BACKBONE's depth (b5's widths, 2 blocks a stage): 8's cs2dz
+run, 13's and 14's twins and CLI runs, 16's ablations and 17's export.
 """
+import atexit
 import contextlib
 import gc
 import io
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -202,6 +229,8 @@ import time
 from unittest import mock
 
 import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM data-sheet peaks (dense): device memory and fp32 outside the
 # tensor cores; the bounds below are computed from these and the shapes
@@ -244,6 +273,32 @@ def smi_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# the processes this script starts (each waited for before the script
+# goes on): in its process group, so a signal to the group (a time limit's)
+# reaches them with their own children, and killed when it exits
+_CHILDREN = []
+
+
+def spawn(cmd, log_path):
+    """Start ``cmd`` from the repository root in this script's process
+    group, its output to ``log_path``."""
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                cwd=ROOT)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def _stop_children():
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+atexit.register(_stop_children)
 
 
 def cuda_ms(fn, warmup=3, reps=20):
@@ -1295,13 +1350,19 @@ TRAIN_BF16_KERNEL_MOMENT_RTOL = 2.0 ** -6
 # phase_train's counted steps before its one timed step (the step its
 # CUDA-event sections are taken from): few, so the whole script,
 # phase_model_zoo included, stays well inside its time limit
-TRAIN_COUNTED_STEPS = 2
-# the bare step's median by phase tag ("train_cs2dz", ...) and the
-# synthetic run's steady iteration ("loop_cs2dz", ...), for the real runs
+TRAIN_COUNTED_STEPS = 1
+# the depth cut of the repeated full-width checks, to keep the script in
+# its time: MiT at b5's widths (64, 128, 320, 512; heads 1, 2, 5, 8) with 2
+# blocks a stage instead of 3, 6, 40, 3, the ``mit_b1`` variant. It runs
+# the cs2dz training run, the UDA options' and the train types' twins and
+# CLI runs, the zoo's ablation twins and the exported model; the flagship
+# and cs2dz steps, the flagship's run, the test path, the corpus runs and
+# every timed comparison stay at b5
+CUT_BACKBONE = "mit_b1"
+# the bare step's median by phase tag ("train_cs2dz", ...), for the runs
+# timed beside it
 STEP_MS_MEDIAN = {}
 STEP_PROFILED = {}     # tag: (profiled step's host ms, its device-busy ms)
-STEP_SECTIONS = {}     # tag: the step's CUDA-event sections (ms)
-LOOP_MS_STEADY = {}
 
 
 def _kernel_counters():
@@ -1763,7 +1824,6 @@ def phase_train(dtype="float32", batch=None, preset="cs2dsec", options=False):
     print(f"{tag} timings " + json.dumps(timings), flush=True)
     STEP_MS_MEDIAN[tag] = statistics.median(step_ms)
     STEP_PROFILED[tag] = (prof_ms, busy_ms)
-    STEP_SECTIONS[tag] = breakdown
     return totals
 
 
@@ -1887,8 +1947,9 @@ def _feed_ms(cfg):
             "feed_wire_bytes": nbytes(wire)}
 
 
-def phase_loop(preset="cs2dsec"):
-    """The DACS training run of a preset (the flagship cs2dsec, or cs2dz)
+def phase_loop(preset="cs2dsec", backbone=None):
+    """The DACS training run of a preset (the flagship cs2dsec, or cs2dz),
+    with ``backbone`` its MiT variant if given,
     through ``cmda_tpu_torch.tools.train.main --config <preset>`` (loader
     threads, bf16 wire feed, device prefetch, TrainLoop, checkpoints,
     periodic evaluation, debug grids), with its launch counts per step,
@@ -1914,6 +1975,8 @@ def phase_loop(preset="cs2dsec"):
                     checkpoint_interval=LOOP_INTERVAL,
                     eval_interval=LOOP_INTERVAL,
                     debug_img_interval=LOOP_INTERVAL)
+    if backbone:
+        cfg = C.replace(cfg, model=C.replace(cfg.model, backbone=backbone))
     if not (cfg.data.wire_bf16 and cfg.data.device_prefetch == 1
             and cfg.data.workers == 4 and cfg.checkpoint_max_keep == 1):
         fail(f"{tag}: the preset's data settings changed: {cfg.data}")
@@ -2056,7 +2119,8 @@ def phase_loop(preset="cs2dsec"):
                                + LOOP_EVAL_LAUNCHES[k]) for k in totals}
         if totals != expect:
             fail(f"{tag}: launches {totals}, expected {expect}")
-        print(f"{tag}: {LOOP_ITERS} iterations through tools.train.main in "
+        print(f"{tag}: {cfg.model.backbone}, {LOOP_ITERS} iterations "
+              f"through tools.train.main in "
               f"{run_s:.1f} s; launches {totals} (per step "
               f"{per_step}, per debug snapshot argmax 1 ISR "
               f"1, per evaluation argmax {LOOP_VAL}); final loss "
@@ -2095,40 +2159,24 @@ def phase_loop(preset="cs2dsec"):
 
         def worst(a, b):
             return max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12) for k in a)
-        # cuDNN's default convolution algorithms (the CycleGAN's transposed
-        # convolutions among them) need not give the same bits on two
-        # calls: on cs2dsec first the two steps as the run takes them, on
-        # copies (reported; cs2dz's, without the CycleGAN, were bitwise
-        # equal and are no longer run, to keep the script inside its
-        # time), then with deterministic algorithms (held)
-        usual = ([step_logs(copy.deepcopy(s))
-                  for s in (saved["state"], loaded)]
-                 if preset == "cs2dsec" else None)
+        # with deterministic algorithms: cuDNN's default ones (the
+        # CycleGAN's transposed convolutions among them) need not give the
+        # same bits on two calls (8.5e-8 relative on cs2dsec on an H100;
+        # those reported steps are no longer run, to keep the script inside
+        # its time)
         with _deterministic_cudnn():
             a, b = step_logs(saved["state"]), step_logs(loaded)
-        if usual is not None:
-            timings["resume_step_rel_diff_usual"] = worst(*usual)
         timings["resume_step_rel_diff_deterministic"] = worst(a, b)
         if worst(a, b) > LOOP_LOG_RTOL:
             fail(f"{tag}: a step from the loaded state differs by "
                  f"{worst(a, b):.3g} relative: {a} vs {b}")
-        if usual is None:
-            usual_txt = ""
-        elif usual[0] == usual[1]:
-            usual_txt = "; with the default ones: bitwise equal"
-        else:
-            usual_txt = (f"; with the default ones: within "
-                         f"{worst(*usual):.3g} relative (" + ", ".join(
-                             f"{k} {usual[0][k]!r} vs {usual[1][k]!r}"
-                             for k in usual[0] if usual[0][k] != usual[1][k])
-                         + ")")
         print(f"{tag}: iter_{LOOP_INTERVAL}.pth in a fresh trainer equals the "
               f"state it was written from in all {len(ref)} tensors and the "
               f"step; one step from each on one batch and draws, with "
               f"deterministic cuDNN algorithms: logs "
               + ("bitwise equal" if a == b else
                  f"within {worst(a, b):.3g} relative") + ", tolerance "
-              f"{LOOP_LOG_RTOL:g}" + usual_txt, flush=True)
+              f"{LOOP_LOG_RTOL:g}", flush=True)
         del saved["state"], loaded, fresh, trainer
 
         # --- the last checkpoint serves --------------------------------
@@ -2201,7 +2249,6 @@ def phase_loop(preset="cs2dsec"):
         f"{prof['host_ms']:.2f} ms host, device busy not measured (the trace "
         "holds no device event)"), flush=True)
     print(f"{tag} timings " + json.dumps(timings), flush=True)
-    LOOP_MS_STEADY[tag] = timings["loop_iter_ms_median_steady"]
     return totals
 
 
@@ -2679,8 +2726,8 @@ def phase_real_corpus(corpus):
     evaluation of the 4 val frames at iteration 4, the launch counters set
     to 0 just before the run; every source sample of Rare Class Sampling
     drawn from a file that samples_with_class.json lists for the class
-    drawn. Then the iteration time beside the bare step and the synthetic
-    run of the same preset, data_time and its host parts, evaluation
+    drawn. Then the iteration time beside the bare step, data_time and
+    its host parts, evaluation
     seconds a frame and the busy share of 3 profiled iterations. Returns
     the run's launches."""
     import collections
@@ -2858,10 +2905,9 @@ def phase_real_corpus(corpus):
     busy_ms, n_events = _busy_ms(prof["p"])
     steady = statistics.median(iter_ms[i] for i in REAL_PROFILED)
     bare = STEP_MS_MEDIAN.get("train_cs2dz")
-    synthetic = LOOP_MS_STEADY.get("loop_cs2dz")
     timings.update({
         "iter_ms": iter_ms, "iter_ms_median_steady": steady,
-        "bare_step_ms_median": bare, "synthetic_loop_ms_steady": synthetic,
+        "bare_step_ms_median": bare,
         "data_ms": data_ms,
         "data_ms_median_after_first": statistics.median(
             data_ms[i] for i in range(2, REAL_ITERS + 1)),
@@ -2876,8 +2922,7 @@ def phase_real_corpus(corpus):
         f"{i} {t:.2f}" for i, t in iter_ms.items())
         + f"; steady median (iterations {REAL_PROFILED}, profiled) "
         f"{steady:.2f} ms, the bare cs2dz step {bare:.2f} ms "
-        f"({100 * (steady / bare - 1):+.1f}%), the synthetic cs2dz run's "
-        f"steady iteration {synthetic:.2f} ms ({smi})", flush=True)
+        f"({100 * (steady / bare - 1):+.1f}%) ({smi})", flush=True)
     print(f"{tag}: data_time ms " + ", ".join(
         f"{i} {t:.3f}" for i, t in data_ms.items())
         + f"; median after the first "
@@ -3152,9 +3197,9 @@ def _twin_step(cfg, batch, tag, timed_steps=0, state=None, coin=None,
             timing)
 
 
-def _profiled_summary(iters, profiled):
-    """The profiled iteration of a run beside the bare cs2dz step's
-    profiled step (phase_train)."""
+def _profiled_summary(iters, profiled, bare=True):
+    """The profiled iteration of a run, with ``bare`` beside the bare cs2dz
+    step's profiled step (phase_train)."""
     host, busy, n = profiled
     bare_host, bare_busy = STEP_PROFILED.get("train_cs2dz", (None, None))
 
@@ -3162,10 +3207,12 @@ def _profiled_summary(iters, profiled):
         return (f"host {h:.2f} ms, device busy {b:.2f} ms "
                 f"({100 * b / h:.1f}%)" if b is not None else
                 f"host {h:.2f} ms, device busy not measured")
-    return (f"iteration {iters} profiled: {share(host, busy)} over {n} "
-            "device events; the bare cs2dz step's: " + (
-                share(bare_host, bare_busy) if bare_host is not None
-                else "not run"))
+    text = (f"iteration {iters} profiled: {share(host, busy)} over {n} "
+            "device events")
+    if not bare:
+        return text
+    return text + "; the bare cs2dz step's: " + (
+        share(bare_host, bare_busy) if bare_host is not None else "not run")
 
 
 def _twin_summary(errors):
@@ -3457,16 +3504,18 @@ UDA_CLI_ITERS = 1
 
 
 def phase_uda_options():
-    """The UDA ablations and the step levers at full width (MiT-b5, cs2dsec
-    512x512, batch 2, float32, synthetic, random weights from seed 0): each
-    of UDA_OPTION_STEPS held against its plain-version twin
-    (``_twin_step``) with its launches checked; the coin's host read timed;
+    """The UDA ablations and the step levers at full width (cs2dsec 512x512,
+    batch 2, float32, synthetic, random weights from seed 0): each of
+    UDA_OPTION_STEPS at CUT_BACKBONE's depth held against its plain-version
+    twin (``_twin_step``) with its launches checked; at MiT-b5 the coin's
+    host read timed;
     the levers (``uda.stacked_stream_ce``, ``model.head_batched_train``,
     ``uda.shift_type='all'`` and the fused resize) held the same way and
     timed (UDA_LEVER_STEPS steps, sections, peak and live GiB, one
     profiled step) beside the flagship step of phase_train; then
     ``tools.train.main --config cs2dsec --synthetic --fused-resize --set
-    uda.isr_another_fusion=true`` for UDA_CLI_ITERS iterations. Returns
+    uda.isr_another_fusion=true`` at CUT_BACKBONE for UDA_CLI_ITERS
+    iterations. Returns
     the launches of the optioned steps and the CLI run, and the levers'
     step's."""
     import copy
@@ -3485,19 +3534,21 @@ def phase_uda_options():
     batch = uda_batch(SyntheticSource(crop_size=(w, h)),
                       SyntheticTarget(crop_size=(w, h)), [0, 1])
     t0 = time.perf_counter()
-    state0 = DACSTrainer(base, device="cuda").init_state(seed=0)
+    cut = C.replace(base, model=C.replace(base.model, backbone=CUT_BACKBONE))
+    state0 = DACSTrainer(cut, device="cuda").init_state(seed=0)
     torch.cuda.synchronize()
-    print(f"{tag}: one b5 state built in {time.perf_counter() - t0:.1f} s "
-          "for every optioned step", flush=True)
+    print(f"{tag}: one {CUT_BACKBONE} state built in "
+          f"{time.perf_counter() - t0:.1f} s for every optioned step",
+          flush=True)
     totals = dict.fromkeys(TRAIN_COUNTED, 0)
     timings = {}
 
-    def cfg_of(train_type, uda):
-        return C.replace(base, model=C.replace(base.model,
-                                               train_type=train_type),
-                         uda=C.replace(base.uda, **uda))
+    def cfg_of(train_type, uda, at=base):
+        return C.replace(at, model=C.replace(at.model,
+                                             train_type=train_type),
+                         uda=C.replace(at.uda, **uda))
     for name, train_type, uda, coin in UDA_OPTION_STEPS:
-        cfg = cfg_of(train_type, uda)
+        cfg = cfg_of(train_type, uda, cut)
         logs, _, launches, errors, _ = _twin_step(
             cfg, batch, f"{tag} {name}", state=copy.deepcopy(state0),
             coin=coin)
@@ -3511,8 +3562,8 @@ def phase_uda_options():
                  f"{want_events}")
         if uda.get("source_only") and any(k.startswith("mix/") for k in logs):
             fail(f"{tag} {name}: a source_only step logged the mixed pass")
-        print(f"{tag} {name}: {train_type} {uda} coin {coin}, launches "
-              f"{launches}, loss {logs['loss']:.5f}, use_events "
+        print(f"{tag} {name}: {CUT_BACKBONE} {train_type} {uda} coin {coin}, "
+              f"launches {launches}, loss {logs['loss']:.5f}, use_events "
               f"{logs['use_events']:.0f}; " + _twin_summary(errors)
               + f" ({smi})", flush=True)
         timings[name] = errors
@@ -3520,21 +3571,25 @@ def phase_uda_options():
         torch.cuda.empty_cache()
 
     # the coin's host read: the events-coin step with isr_another_fusion
-    # runs the default graph plus the read; it ran in the twins above, so
-    # no warm-up step; beside phase_train's flagship step
+    # runs the default graph plus the read; beside phase_train's flagship
+    # step, at b5 from its seed, after one step untimed
+    del state0
+    gc.collect()
+    torch.cuda.empty_cache()
     reads = []
     tr = DACSTrainer(cfg_of(TOGETHER, {"isr_another_fusion": True}),
                      device="cuda")
-    st = copy.deepcopy(state0)
-    for _ in range(UDA_COIN_READ_STEPS):
+    st = tr.init_state(seed=0)
+    for i in range(UDA_COIN_READ_STEPS + 1):
         d = tr.new_draws(st, 2, (h, w))
         d.coin = torch.tensor(0.9, device=d.coin.device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tr.train_step(st, batch, d)
         torch.cuda.synchronize()
-        reads.append((time.perf_counter() - t0) * 1e3)
-    del tr, st, state0
+        if i:
+            reads.append((time.perf_counter() - t0) * 1e3)
+    del tr, st
     gc.collect()
     torch.cuda.empty_cache()
     timings["coin_read_ms"] = reads
@@ -3588,7 +3643,8 @@ def phase_uda_options():
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--config", "cs2dsec", "--synthetic", "--max-iters",
                 str(UDA_CLI_ITERS), "--fused-resize", "--set",
-                "uda.isr_another_fusion=true", "--num-workers", "2",
+                "uda.isr_another_fusion=true", "--backbone", CUT_BACKBONE,
+                "--num-workers", "2",
                 "--seed", "0", "--set", "log_interval=1",
                 "--set", "checkpoint_interval=1000",
                 "--set", "eval_interval=1000",
@@ -3607,7 +3663,7 @@ def phase_uda_options():
                if not math.isfinite(v)]
         if bad or len(steps) != UDA_CLI_ITERS:
             fail(f"{tag} cli: records {steps}")
-        print(f"{tag} cli: tools.train.main {' '.join(argv[:8])}: "
+        print(f"{tag} cli: tools.train.main {' '.join(argv[:10])}: "
               f"{UDA_CLI_ITERS} iterations in {run_s:.1f} s, launches {cli}, "
               "losses " + ", ".join(f"{r['loss']:.5f}" for r in steps)
               + ", use_events " + ", ".join(
@@ -3725,17 +3781,17 @@ def _types_batch(cfg, root):
 
 
 def phase_train_types():
-    """The DACS trainer's DarkZurich ablations at full width (MiT-b5,
-    cs2dz 512x512, batch 2, float32, random weights from seed 0, the JAX
-    grid's model settings): each of TYPES_STEPS from its model shape's b5
-    state against its plain-version twin (``_twin_step``, launches checked,
-    then TYPES_TIMED_STEPS timed steps and one step's CUDA-event sections
-    beside phase_train's cs2dz step), on a batch of synthetic source
+    """The DACS trainer's DarkZurich ablations at full width and
+    CUT_BACKBONE's depth (cs2dz 512x512, batch 2, float32, random weights
+    from seed 0, the JAX grid's model settings): each of TYPES_STEPS from
+    its model shape's state against its plain-version twin
+    (``_twin_step``, launches checked, then TYPES_TIMED_STEPS timed steps
+    and one step's CUDA-event sections), on a batch of synthetic source
     samples and DarkZurich frames this phase writes (deflared and day
-    pairs); the feature distance's frozen b5 ``EncoderDecoder`` loads a
-    seeded MiT-b5 it saves as an NVlabs-keyed ``.pth``. Then
-    ``tools.train.main --config cs2dz --synthetic`` as the no-fusion type
-    with ``--isr_edge 1 --feature_dist --imnet`` for TYPES_CLI_ITERS
+    pairs); the feature distance's frozen ``EncoderDecoder`` loads a seeded
+    MiT it saves as an NVlabs-keyed ``.pth``. Then ``tools.train.main
+    --config cs2dz --synthetic --backbone CUT_BACKBONE`` as the no-fusion
+    type with ``--isr_edge 1 --feature_dist --imnet`` for TYPES_CLI_ITERS
     iterations and one evaluation (the fusion-less model's image stream).
     Returns the launches of the counted steps and the CLI run."""
     import copy
@@ -3750,6 +3806,7 @@ def phase_train_types():
     t_phase = time.perf_counter()
     tag, smi = "train_types", smi_line()
     base = C.cs2dz_image_rawisr_b5()
+    base = C.replace(base, model=C.replace(base.model, backbone=CUT_BACKBONE))
     totals = dict.fromkeys(TRAIN_COUNTED, 0)
     timings = {}
 
@@ -3768,13 +3825,14 @@ def phase_train_types():
         gen = torch.Generator(device="cuda")
         gen.manual_seed(3)
         init_weights(mit, gen)
-        imnet_pth = os.path.join(root, "mit_b5_seeded.pth")
+        imnet_pth = os.path.join(root, f"{CUT_BACKBONE}_seeded.pth")
         torch.save(mit.state_dict(), imnet_pth)
         del mit
         batch = _types_batch(base, root)
         timings["setup_s"] = time.perf_counter() - t0
         print(f"{tag}: DarkZurich frames, deflared and day pairs written, "
-              f"a seeded MiT-b5 saved ({os.path.getsize(imnet_pth)} bytes) "
+              f"a seeded {CUT_BACKBONE} saved "
+              f"({os.path.getsize(imnet_pth)} bytes) "
               f"and the batch loaded in {timings['setup_s']:.1f} s",
               flush=True)
         states = {}
@@ -3792,7 +3850,7 @@ def phase_train_types():
                     cfg_of(train_type, fd), device="cuda").init_state(
                     seed=0, imnet_state_dict=load_torch_file(imnet_pth)
                     if train_type == NO_FUSION else None)
-                print(f"{tag}: one b5 {train_type} state built in "
+                print(f"{tag}: one {CUT_BACKBONE} {train_type} state built in "
                       f"{time.perf_counter() - t0:.1f} s", flush=True)
             logs, _, launches, errors, timing = _twin_step(
                 cfg, batch, f"{tag} {name}", timed_steps=TYPES_TIMED_STEPS,
@@ -3807,19 +3865,17 @@ def phase_train_types():
                 if want != (key in logs) or want and not logs[key] > 0:
                     fail(f"{tag} {name}: {key} {logs.get(key)}")
             med = statistics.median(timing["step_ms"])
-            dz = STEP_MS_MEDIAN.get("train_cs2dz", float("nan"))
             timings[name] = {**timing, "twin_errors": errors,
                              "launches": launches, "logs": logs}
-            print(f"{tag} {name}: {train_type} {TYPES_MODEL[train_type]} "
-                  f"{uda}, launches {launches}, loss {logs['loss']:.5f}; "
-                  + _twin_summary(errors) + "; step ms " + ", ".join(
+            print(f"{tag} {name}: {CUT_BACKBONE} {train_type} "
+                  f"{TYPES_MODEL[train_type]} {uda}, launches {launches}, "
+                  f"loss {logs['loss']:.5f}; " + _twin_summary(errors)
+                  + "; step ms " + ", ".join(
                       f"{t:.2f}" for t in timing["step_ms"])
-                  + f", median {med:.2f} against the cs2dz step's {dz:.2f} "
-                  f"({100 * (med / dz - 1):+.1f}%); peak "
+                  + f", median {med:.2f}; peak "
                   f"{timing['peak_gib']:.2f} GiB ({smi})", flush=True)
-            ref = STEP_SECTIONS.get("train_cs2dz", {})
-            print(f"{tag} {name}: step device ms (the cs2dz step's) "
-                  + ", ".join(f"{k} {v:.2f} ({ref.get(k, float('nan')):.2f})"
+            print(f"{tag} {name}: step device ms "
+                  + ", ".join(f"{k} {v:.2f}"
                               for k, v in timing["sections"].items())
                   + f"; memory GiB, live at its start "
                   f"{timing['start_gib']:.2f}; per section peak / live at "
@@ -3841,7 +3897,8 @@ def phase_train_types():
                     "--set", "model.fusion_isr=", "--set",
                     "model.split_cls=true", "--set", "model.events_classes=2",
                     "--isr_edge", "1", "--feature_dist", str(TYPES_FDIST),
-                    "--imnet", imnet_pth, "--num-workers", "2", "--seed",
+                    "--imnet", imnet_pth, "--backbone", CUT_BACKBONE,
+                    "--num-workers", "2", "--seed",
                     "0", "--set", "log_interval=1",
                     "--set", "checkpoint_interval=1000",
                     "--set", f"eval_interval={TYPES_CLI_ITERS}",
@@ -3879,7 +3936,8 @@ def phase_train_types():
                       f"{r['src/loss_imnet_feat_dist']:.5f}" for r in steps)
                   + f", mIoU {miou[0]:.4f}, iteration ms " + ", ".join(
                       f"{r['time'] * 1e3:.2f}" for r in steps)
-                  + f"; {_profiled_summary(TYPES_CLI_ITERS, profiled)} "
+                  + "; " + _profiled_summary(TYPES_CLI_ITERS, profiled,
+                                             bare=False) + f" "
                   f"({smi})", flush=True)
             del loop
     for k, v in cli.items():
@@ -4507,7 +4565,8 @@ ZOO_MICRO_F64_RTOL = {"cuda": 5e-3, "cpu": 2.5e-2}
 
 def _zoo_ablations(tag, smi, timings, totals):
     """The four ablation steps: each config from ``tools.train``'s parser
-    and ``build_config`` (``--config cs2dsec --synthetic`` plus the flag),
+    and ``build_config`` (``--config cs2dsec --synthetic --backbone
+    CUT_BACKBONE`` plus the flag),
     one step against its plain-version twin (``_twin_step``) with the
     flagship's launches checked, then one timed step."""
     import torch
@@ -4517,7 +4576,8 @@ def _zoo_ablations(tag, smi, timings, totals):
     batch = None
     for name, flags in ZOO_ABLATIONS:
         cfg = ttrain.build_config(ttrain.parse_args(
-            ["--config", "cs2dsec", "--synthetic"] + flags))
+            ["--config", "cs2dsec", "--synthetic", "--backbone",
+             CUT_BACKBONE] + flags))
         if batch is None:
             w, h = cfg.data.crop_size
             batch = uda_batch(SyntheticSource(crop_size=(w, h)),
@@ -4533,7 +4593,7 @@ def _zoo_ablations(tag, smi, timings, totals):
         m = cfg.model
         timings[name] = {"twin_errors": errors, **timing,
                          "wall_s": time.perf_counter() - t0}
-        print(f"{tag} {name}: cs2dsec b5 512x512 batch 2, fusion "
+        print(f"{tag} {name}: cs2dsec {m.backbone} 512x512 batch 2, fusion "
               f"{m.fusion!r}, fusion_isr {m.fusion_isr!r}, share "
               f"{m.share_decoder!r}: launches {launches}, loss "
               f"{logs['loss']:.5f}; " + _twin_summary(errors) + "; step ms "
@@ -4814,8 +4874,9 @@ def _zoo_micro(tag):
 def phase_model_zoo():
     """The model zoo at full width: CMDA's fusion (``--fusion af``,
     ``--fusion caf``) and decoder-sharing (``--no_share_decoder``,
-    ``--half_share_decoder``) ablations on the cs2dsec MiT-b5 step at
-    512x512 batch 2, each against its plain-version twin with the
+    ``--half_share_decoder``) ablations on the cs2dsec step at
+    CUT_BACKBONE's depth, 512x512 batch 2, each against its plain-version
+    twin with the
     flagship's launches (CE 8 / dx 8 / argmax 3 / ISR 1) and timed; OrgDACS
     on DeepLabV2 / ResNet-101 (DAFormer's DACS baseline) for ZOO_ORG_STEPS
     steps; one supervised step of every other head and block type
@@ -4861,6 +4922,399 @@ def phase_model_zoo():
     return totals
 
 
+TOOLS_EXPORT_HW = (440, 640)
+# the exported model: the cs2dsec fusion model at b5's widths with its MiTs
+# cut to CUT_BACKBONE's depth; at full depth the export traced in 57.6-90.0
+# s and each load of the artifact took 26.3-43.5 s on the card's host
+# (PERF.md, PR 16), more than the script's time holds
+TOOLS_EXPORT_SET = (f"model.backbone={CUT_BACKBONE}",)
+TOOLS_INFER_STEPS = 5
+TOOLS_PROFILE = ("--batch", "2", "--steps", "2")
+TOOLS_TRACE_TOP = 10
+TOOLS_CE_ITERS = 20
+TOOLS_SCAN_STEPS = 3
+# the C4 twin's timed steps after its compared (untimed) step of each
+# policy: three of each, alternating which runs first
+TOOLS_C4_ORDER = ("full", "dots", "dots", "full", "full", "dots")
+# where the custom ops' dispatch is timed against the wrappers' direct
+# call: the argmax at the serving and the step's pseudo-label points, the
+# ISR at the step's
+TOOLS_DISPATCH_ARGMAX = ("serving_b1", "step_prob")
+TOOLS_DISPATCH_ISR = "step"
+TOOLS_CHUNKED_ITERS = 4
+TOOLS_SEGMENT_ITERS = 2
+TOOLS_LR_RTOL = 1e-12
+# the train CLI's tiny preset cut to the micro model (1 block a stage) at
+# 32x32, logging every iteration, with a random_choice_thres ramp: the
+# segmented run's micro size
+TOOLS_MICRO_ARGV = ("--config", "tiny", "--synthetic", "--num-workers", "1",
+                    "--set", "model.backbone=mit_micro",
+                    "--set", "model.head.in_channels=16,32,64,128",
+                    "--set", "model.head.embed_dim=32",
+                    "--set", "model.head.channels=32",
+                    "--set", "data.crop_size=32,32", "--set", "log_interval=1",
+                    "--set", "uda.random_choice_thres=0.2-0.8")
+
+
+def _tools_dispatch(tag, smi, timings):
+    """The custom ops' dispatch cost on the card: each serving kernel at
+    its TOOLS_DISPATCH points through ``torch.ops.cmda_tpu_torch`` and
+    through its wrapper, which calls the same implementation directly in
+    eager mode (the same outputs, bitwise), per call with ``cuda_ms`` (the
+    host's work included). These launches compare two routes to one
+    kernel: phase_tools runs this before it sets its counters to 0."""
+    import torch
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.ops.fused_resize import fused_resize_argmax
+    from cmda_tpu_torch.ops.isr_kernel import batched_isr
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    ops = torch.ops.cmda_tpu_torch
+    calls = {}
+    for point in TOOLS_DISPATCH_ARGMAX:
+        shape, (hh, ww), prob = ARGMAX_POINTS[point]
+        x = torch.randn(shape, generator=gen, device="cuda")
+        calls[f"argmax_{point}"] = (
+            lambda x=x, hh=hh, ww=ww, prob=prob: ops.fused_resize_argmax(
+                x, hh, ww, prob),
+            lambda x=x, hh=hh, ww=ww, prob=prob: fused_resize_argmax(
+                x, (hh, ww), with_prob=prob))
+    b, h, w = ISR_POINTS[TOOLS_DISPATCH_ISR]
+    gray = _smooth_gray(gen, b, h, w, "cuda")
+    dirs = torch.arange(b, dtype=torch.int32, device="cuda") % 4
+    kw = _isr_kw(C.cs2dsec_image_events_b5().data.target_isr)
+    lo, hi = kw["val_range"]
+    calls[f"isr_{TOOLS_DISPATCH_ISR}"] = (
+        lambda: ops.batched_isr(gray, dirs, float(lo), float(hi),
+                                float(kw["threshold"]),
+                                float(kw["clip_range"]),
+                                int(kw["shift_pixel"])),
+        lambda: batched_isr(gray, dirs, **kw))
+    out = {}
+    for name, (op, wrapper) in calls.items():
+        a, b_ = op(), wrapper()
+        a = a if isinstance(a, tuple) else (a,)
+        b_ = b_ if isinstance(b_, tuple) else (b_,)
+        if not all(y is None or torch.equal(x, y) for x, y in zip(a, b_)):
+            fail(f"{tag} dispatch {name}: the op and the wrapper differ")
+        out[name] = {"op_ms": cuda_ms(op), "wrapper_ms": cuda_ms(wrapper)}
+    timings["dispatch"] = out
+    print(f"{tag} dispatch: per call ms through the custom op / the "
+          "wrapper's direct call: " + ", ".join(
+              f"{k} {v['op_ms']:.4f} / {v['wrapper_ms']:.4f}"
+              for k, v in out.items()) + f" ({smi})", flush=True)
+
+
+def _tools_export(tag, work, timings):
+    """``export_model export --platforms cuda --verify`` of the cs2dsec
+    fusion model (seeded random weights, TOOLS_EXPORT_SET) at batch 1 and
+    TOOLS_EXPORT_HW float32, then ``export_model run`` on the artifact,
+    each through the tool's ``main``: the artifact verified against the
+    eager model, its graph naming the argmax op, each call launching the
+    kernel exactly once, the outputs' shapes, dtype and finiteness."""
+    import torch
+    from cmda_tpu_torch.tools import export_model
+    art = os.path.join(work, "serve.cmda")
+    h, w = TOOLS_EXPORT_HW
+    reports, seconds = [], []
+    for argv in (["export", art, "--config", "cs2dsec", "--batch", "1",
+                  "--height", str(h), "--width", str(w), "--platforms",
+                  "cuda", "--verify", "--set", *TOOLS_EXPORT_SET],
+                 ["run", art]):
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                reports.append(export_model.main(argv))
+        except AssertionError as e:     # --verify's comparison
+            fail(f"{tag} export_model {argv[0]}: {e}")
+        seconds.append(time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    export, run = reports
+    verified = export["verify"]
+    for what in (export, run):
+        if what["custom_ops"] != ["cmda_tpu_torch.fused_resize_argmax"]:
+            fail(f"{tag} export: the program calls {what['custom_ops']}")
+    if (export["backbone"] != CUT_BACKBONE
+            or run["argmax_launches_per_call"] != [1] * len(
+                run["argmax_launches_per_call"])
+            or run["logits_shape"] != [1, h, w, 19]
+            or run["pred_dtype"] != "int32" or not run["logits_finite"]):
+        fail(f"{tag} export run: {run}")
+    nbytes = os.path.getsize(export_model.program_path(art, "cuda"))
+    timings["export"] = {
+        "export_s": seconds[0], "run_s": seconds[1],
+        "trace_s": export["export_s"]["cuda"], "bytes": nbytes,
+        "verify_max_abs_logit_diff": verified["max_abs_logit_diff"],
+        "load_s": run["load_s"], "call_ms": run["call_ms"],
+        "launches_per_call": run["argmax_launches_per_call"]}
+    print(f"{tag} export: MiT {CUT_BACKBONE} (b5's widths) cs2dsec fusion, "
+          f"{seconds[0]:.1f} s, traced in {export['export_s']['cuda']:.1f} "
+          f"s, {nbytes} bytes, verified (logits "
+          f"{verified['max_abs_logit_diff']} from the eager model, labels "
+          f"equal); run: {seconds[1]:.1f} s, loaded in {run['load_s']:.1f} "
+          f"s, a call {run['call_ms']:.2f} ms, argmax launches per call "
+          f"{run['argmax_launches_per_call']}", flush=True)
+
+
+def _tools_c4_twin(tag, smi, timings):
+    """One b5 cs2dsec float32 DACS step with model.remat_policy 'dots'
+    against the same step with 'full' (both remat on), from one seeded
+    state and the same draws: losses to TRAIN_LOSS_RTOL, AdamW's first
+    moments to TRAIN_MOMENT_RTOL of the largest. That step of each is the
+    warm-up; then TOOLS_C4_ORDER's steps, timed one by one (each ended by
+    a synchronise): each policy's median ms, and its peak GiB over its
+    steps, absolute (both states live) and above the step's start."""
+    import torch
+    from cmda_tpu_torch import config as C
+    from cmda_tpu_torch.tools.profile_step import make_batch
+    from cmda_tpu_torch.uda.dacs import DACSTrainer
+    base = C.PRESETS["cs2dsec"]()
+    b, (w, h) = base.data.batch_size, base.data.crop_size
+    batch = make_batch(b, h, w, seed=3)
+    trainers, states, logs = {}, {}, {}
+    for policy in ("dots", "full"):
+        cfg = C.replace(base, model=C.replace(base.model, remat=True,
+                                              remat_policy=policy))
+        trainers[policy] = DACSTrainer(cfg, device="cuda")
+        states[policy] = trainers[policy].init_state(seed=0)
+        if states[policy].model.backbone_image.remat_policy != policy:
+            fail(f"{tag} c4: the encoder's remat policy is "
+                 f"{states[policy].model.backbone_image.remat_policy}, not "
+                 f"{policy}")
+    draws = trainers["dots"].new_draws(states["dots"], b, (h, w))
+    for policy in ("dots", "full"):
+        states[policy], lg = trainers[policy].train_step(states[policy],
+                                                         batch, draws)
+        logs[policy] = {k: float(v) for k, v in lg.items()}
+    loss_err = _check_logs(logs["dots"], logs["full"],
+                           f"{tag} c4 dots vs full")
+    mom_err = _check_moments(states["dots"], states["full"],
+                             TRAIN_MOMENT_RTOL, f"{tag} c4 dots vs full")
+    ms = {"dots": [], "full": []}
+    peak = {k: [0.0, 0.0] for k in ms}    # absolute, above the start
+    for policy in TOOLS_C4_ORDER:
+        d = trainers[policy].new_draws(states[policy], b, (h, w))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        states[policy], _ = trainers[policy].train_step(states[policy],
+                                                        batch, d)
+        torch.cuda.synchronize()
+        ms[policy].append((time.perf_counter() - t0) * 1e3)
+        top = torch.cuda.max_memory_allocated()
+        peak[policy] = [max(peak[policy][0], top / 2**30),
+                        max(peak[policy][1], (top - start) / 2**30)]
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    timings["c4"] = {"dots_ms": ms["dots"], "full_ms": ms["full"],
+                     "dots_ms_median": med["dots"],
+                     "full_ms_median": med["full"],
+                     "order": list(TOOLS_C4_ORDER),
+                     "dots_peak_gib": peak["dots"][0],
+                     "full_peak_gib": peak["full"][0],
+                     "dots_step_peak_gib": peak["dots"][1],
+                     "full_step_peak_gib": peak["full"][1],
+                     "loss_rel_err": loss_err, "moment_rel_err": mom_err}
+    print(f"{tag} c4: losses {loss_err:.2e}, first moments {mom_err:.2e} of "
+          f"the largest apart (tolerance {TRAIN_MOMENT_RTOL}); steps in the "
+          f"order {', '.join(TOOLS_C4_ORDER)} after one of each: dots ms "
+          + ", ".join(f"{t:.1f}" for t in ms["dots"])
+          + f" (median {med['dots']:.1f}), full ms "
+          + ", ".join(f"{t:.1f}" for t in ms["full"])
+          + f" (median {med['full']:.1f}); peak GiB dots {peak['dots'][0]:.2f}"
+          f" ({peak['dots'][1]:.2f} above the step's start), full "
+          f"{peak['full'][0]:.2f} ({peak['full'][1]:.2f}) ({smi})",
+          flush=True)
+    del trainers, states
+
+
+def _tools_chunked(tag, work, timings):
+    """``train_chunked`` over TOOLS_CHUNKED_ITERS micro iterations in
+    segments of TOOLS_SEGMENT_ITERS, in a process of its own whose
+    segments are processes on the card; merged by ``merge_segment_logs``,
+    the LR and random_choice_thres at every iteration equal an unbroken
+    run's (in this process) to TOOLS_LR_RTOL; then ``checkpoint_tools
+    publish`` / ``convert`` of its last checkpoint, each reloaded equal to
+    the run's student."""
+    import torch
+    from cmda_tpu_torch.apis import init_segmentor
+    from cmda_tpu_torch.tools import (checkpoint_tools, merge_segment_logs,
+                                      train)
+    log = os.path.join(work, "chunked.log")
+    t0 = time.perf_counter()
+    rc = spawn([sys.executable, "-m", "cmda_tpu_torch.tools.train_chunked",
+                "--segment-iters", str(TOOLS_SEGMENT_ITERS), "--max-iters",
+                str(TOOLS_CHUNKED_ITERS), "--work-dir",
+                os.path.join(work, "seg"), "--seed", "3", "--stall-timeout",
+                "300", "--max-stuck-retries", "0"] + list(TOOLS_MICRO_ARGV),
+               log).wait()
+    timings["chunked_s"] = time.perf_counter() - t0
+    with open(log) as f:
+        output = f.read()
+    print("\n".join(line for line in output.splitlines()
+                    if line.startswith("[chunked]")), flush=True)
+    if rc != 0:
+        fail(f"{tag} chunked: train_chunked returned {rc}:\n"
+             f"{output[-4000:]}")
+    seg_dir, one_dir = os.path.join(work, "seg"), os.path.join(work, "one")
+    logs = sorted(f for f in os.listdir(seg_dir) if f.endswith(".log.json"))
+    if len(logs) != TOOLS_CHUNKED_ITERS // TOOLS_SEGMENT_ITERS:
+        fail(f"{tag} chunked: {len(logs)} segment logs")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train.main(["--max-iters", str(TOOLS_CHUNKED_ITERS), "--seed", "3",
+                    "--work-dir", one_dir] + list(TOOLS_MICRO_ARGV))
+    timings["unbroken_s"] = time.perf_counter() - t0
+    merged = merge_segment_logs.main(
+        [seg_dir, os.path.join(work, "merged.log.json")])
+    steps = [r for r in merged if "loss" in r]
+    ref = [r for r in merge_segment_logs.merge(one_dir) if "loss" in r]
+    if ([r["iter"] for r in steps] != list(range(1, TOOLS_CHUNKED_ITERS + 1))
+            or len(ref) != len(steps)):
+        fail(f"{tag} chunked: iterations {[r['iter'] for r in steps]} "
+             f"against {[r['iter'] for r in ref]}")
+    worst = 0.0
+    for a, r in zip(steps, ref):
+        for k in ("lr", "random_choice_thres"):
+            err = abs(a[k] - r[k]) / max(abs(r[k]), 1e-30)
+            worst = max(worst, err)
+            if err > TOOLS_LR_RTOL:
+                fail(f"{tag} chunked: iteration {a['iter']} {k} {a[k]} "
+                     f"against the unbroken run's {r[k]}")
+    timings["chunked_lr_rel_err"] = worst
+    print(f"{tag} chunked: {len(logs)} segment logs, "
+          f"{TOOLS_CHUNKED_ITERS} iterations in {timings['chunked_s']:.1f} s "
+          f"(unbroken {timings['unbroken_s']:.1f} s); lr "
+          f"{[r['lr'] for r in steps]} and random_choice_thres equal the "
+          f"unbroken run's to {worst:.1e}", flush=True)
+    last = os.path.join(seg_dir, f"iter_{TOOLS_CHUNKED_ITERS}.pth")
+    ckpt = torch.load(last, map_location="cpu", weights_only=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        pub = checkpoint_tools.main(["publish", last,
+                                     os.path.join(work, "pub.pth")])
+        conv = checkpoint_tools.main(["convert", last,
+                                      os.path.join(work, "student.pth")])
+    cfg = train.build_config(train.parse_args(list(TOOLS_MICRO_ARGV)))
+    for path in (pub, conv):
+        seg = init_segmentor(cfg, path, device="cuda")
+        bad = [k for k, t in seg.model.state_dict().items()
+               if not torch.equal(t.cpu(), ckpt["state_dict"][k])]
+        if bad:
+            fail(f"{tag} checkpoint_tools: {path} reloads {bad[:3]} unequal")
+    if set(torch.load(pub, weights_only=True)) != {"state_dict", "step",
+                                                   "meta"}:
+        fail(f"{tag} checkpoint_tools publish: {pub}")
+    print(f"{tag} checkpoint_tools: {os.path.basename(pub)} and "
+          f"{os.path.basename(conv)} reload equal to the run's student",
+          flush=True)
+
+
+def phase_tools():
+    """The run-operations tools, one after another on the card: the
+    custom ops' dispatch against the wrappers' direct call
+    (``_tools_dispatch``); then, with the kernel counters set to 0,
+    ``export_model`` (export --verify, then run), ``bench_infer``,
+    ``profile_step`` + ``analyze_trace``, ``bench_ce``, ``bench_scan``, the
+    C4 twin (remat_policy 'dots' against 'full') and the micro segmented
+    run (``train_chunked``: 2 segment processes) with
+    ``merge_segment_logs`` and ``checkpoint_tools``. Returns this
+    process's launches over the phase (the segments' are their
+    processes')."""
+    import torch
+    from cmda_tpu_torch.tools import (analyze_trace, bench_ce, bench_infer,
+                                      bench_scan, profile_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag, smi = "tools", smi_line()
+    timings = {}
+    _tools_dispatch(tag, smi, timings)
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        _tools_export(tag, work, timings)
+        timings["export_phase_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        infer = bench_infer.main(["--batch", "8", "--steps",
+                                  str(TOOLS_INFER_STEPS), "--slide"])
+        timings["bench_infer_s"] = time.perf_counter() - t0
+        if infer["argmax_launches_per_call"] != 1:
+            fail(f"{tag} bench_infer: {infer}")
+        timings["bench_infer"] = {k: v for k, v in infer.items()
+                                  if k.endswith(("_ms", "_per_s", "_fps"))}
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        trace_dir = os.path.join(work, "trace")
+        prof = profile_step.main(list(TOOLS_PROFILE)
+                                 + ["--trace", trace_dir])
+        timings["profile_step_s"] = time.perf_counter() - t0
+        want = {k: float(v) for k, v in TRAIN_LAUNCHES_PER_STEP.items()
+                if k in prof["step_launches"]}
+        if prof["step_launches"] != want:
+            fail(f"{tag} profile_step: launches {prof['step_launches']}, "
+                 f"expected {want}")
+        timings["profile_step"] = {k: v for k, v in prof.items()
+                                   if k.endswith("_s") or k == "peak_gib"}
+        t0 = time.perf_counter()
+        summary = analyze_trace.main([trace_dir, "--top",
+                                      str(TOOLS_TRACE_TOP)])
+        timings["analyze_trace_s"] = time.perf_counter() - t0
+        if summary["lane"] != "device" or not 0 < summary["busy_share"] <= 1:
+            fail(f"{tag} analyze_trace: {summary['lane']} lane, busy share "
+                 f"{summary['busy_share']}")
+        timings["trace"] = {"busy_share": summary["busy_share"],
+                            "busy_ms": summary["busy_ms"],
+                            "window_ms": summary["window_ms"],
+                            "bytes": os.path.getsize(os.path.join(
+                                trace_dir, "trace.json")),
+                            "top": [(r["name"][:60], r["total_ms"], r["count"])
+                                    for r in summary["top"]]}
+        del prof, summary
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ce = bench_ce.main(["--iters", str(TOOLS_CE_ITERS)])
+        timings["bench_ce_s"] = time.perf_counter() - t0
+        calls = TOOLS_CE_ITERS + 2     # the timed iterations and warm-ups
+        if (ce["launches"]["fused_resize_ce"] != calls
+                or ce["launches"]["fused_resize_ce_dx"] != calls
+                or not ce["max_abs_dx_diff"] <= CE_REL_TOL * ce["max_abs_dx"]
+                or not ce["loss_diff"] <= CE_LOSS_RTOL * ce["loss"]):
+            fail(f"{tag} bench_ce: {ce}")
+        timings["bench_ce"] = {k: ce[k] for k in (
+            "plain_ms", "fused_ms", "plain_over_fused", "max_abs_dx_diff",
+            "max_abs_dx")}
+
+        t0 = time.perf_counter()
+        scan = bench_scan.main(["--steps", str(TOOLS_SCAN_STEPS)])
+        timings["bench_scan_s"] = time.perf_counter() - t0
+        timings["bench_scan"] = {k: v for k, v in scan.items()
+                                 if k.startswith(("fwd", "grad"))}
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        _tools_c4_twin(tag, smi, timings)
+        timings["c4_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        _tools_chunked(tag, work, timings)
+        launches = {k: fn.launches for k, fn in counters.items()}
+    timings["phase_s"] = time.perf_counter() - t_phase
+    print(f"{tag}: launches {launches} in this process; phase "
+          f"{timings['phase_s']:.1f} s ({smi})", flush=True)
+    print(f"{tag} timings " + json.dumps(timings, default=float), flush=True)
+    return launches
+
+
 def device_time_only(root):
     """``--device-time ROOT``: build the kernels of the checkout at ROOT
     (another commit unpacked beside this one, say) and print one JSON line
@@ -4883,11 +5337,12 @@ def device_time_only(root):
 
 
 def phases_only(names):
-    """``--phases``: build the kernels and run the named phases alone."""
+    """``--phases``: build the kernels and run the named phases alone; each
+    phase's launches go out as a JSON line ``{name: launches}``."""
     import torch
     from cmda_tpu_torch.ops import _build
     unknown = set(names) - {"isr", "ce", "train_types", "image_trainers",
-                            "model_zoo"}
+                            "model_zoo", "tools"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
     print(smi_line(), flush=True)
@@ -4903,16 +5358,20 @@ def phases_only(names):
         if "ce" in names:
             phase_ce(gen, times)
     if "train_types" in names:
-        phase_train(preset="cs2dz")
         print(json.dumps({"train_types": phase_train_types()}), flush=True)
     if "image_trainers" in names:
         print(json.dumps({"image_trainers": phase_image_trainers()}),
               flush=True)
     if "model_zoo" in names:
         print(json.dumps({"model_zoo": phase_model_zoo()}), flush=True)
+    if "tools" in names:
+        print(json.dumps({"tools": phase_tools()}), flush=True)
 
 
 def main():
+    # a SIGTERM (a time limit) exits through atexit, which stops the
+    # children
+    signal.signal(signal.SIGTERM, lambda signum, _: sys.exit(128 + signum))
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -4991,8 +5450,8 @@ def main():
     elapsed('phase_train(preset="cs2dz")')
     gc.collect()
     torch.cuda.empty_cache()
-    dz_loop_launches = phase_loop("cs2dz")
-    elapsed('phase_loop("cs2dz")')
+    dz_loop_launches = phase_loop("cs2dz", backbone=CUT_BACKBONE)
+    elapsed('phase_loop("cs2dz", backbone=CUT_BACKBONE)')
     gc.collect()
     torch.cuda.empty_cache()
     test_launches = phase_test()
@@ -5015,6 +5474,8 @@ def main():
     elapsed("phase_image_trainers")
     zoo_launches = phase_model_zoo()
     elapsed("phase_model_zoo")
+    tools_launches = phase_tools()
+    elapsed("phase_tools")
     for r in results:
         # the serving kernels keep their serving-path count under
         # "launches"; the training path's count goes beside it, and the
@@ -5038,6 +5499,7 @@ def main():
         r["launches_train_types"] = types_launches[r["name"]]
         r["launches_image_trainers"] = image_launches[r["name"]]
         r["launches_model_zoo"] = zoo_launches[r["name"]]
+        r["launches_tools"] = tools_launches[r["name"]]
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi, flush=True)

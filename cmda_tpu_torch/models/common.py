@@ -17,14 +17,38 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+# the outputs that remat_policy='dots' keeps: the matrix products without
+# batch dimensions (the linears), as JAX's
+# ``checkpoint_policies.dots_with_no_batch_dims_saveable``; the attention's
+# batched products (bmm) and the convolutions are recomputed, as there
+DOTS_SAVED = frozenset({torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default})
 
 
-def maybe_checkpoint(fn, *args, remat: bool):
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def maybe_checkpoint(fn, *args, remat: bool, policy: str = "full"):
     """``fn(*args)``, rematerialised in the backward pass
     (``torch.utils.checkpoint``, non-reentrant) when ``remat`` is set and
-    gradients are being recorded."""
+    gradients are being recorded. ``policy='dots'`` saves the outputs of
+    ``DOTS_SAVED`` and recomputes the rest (selective checkpointing, the
+    JAX package's ``remat_policy='dots'``); any other name rematerialises
+    the whole of ``fn``, as the JAX package does. The values are the
+    same under every policy."""
     if remat and torch.is_grad_enabled():
+        if policy == "dots":
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=_dots_context)
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
 

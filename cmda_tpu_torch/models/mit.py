@@ -12,7 +12,8 @@ the qk softmax in float32, attention as plain matmul + softmax.
 Training: stochastic depth takes pre-drawn uniforms, one [depth, 2, B]
 tensor per stage (``u[i, 0]`` for block i's attention branch, ``u[i, 1]``
 for its MLP branch), as the JAX package draws them outside its stage scan.
-``remat=True`` checkpoints each block; the injected uniforms make the
+``remat=True`` checkpoints each block (``remat_policy='dots'`` saves the
+linears' outputs, ``models/common.py``); the injected uniforms make the
 recompute deterministic.
 """
 from __future__ import annotations
@@ -173,10 +174,11 @@ class MixVisionTransformer(nn.Module):
     blocks."""
 
     def __init__(self, cfg: MiTConfig = MiTConfig(), in_chans: int = 3,
-                 remat: bool = False):
+                 remat: bool = False, remat_policy: str = "full"):
         super().__init__()
         self.cfg = cfg
         self.remat = remat
+        self.remat_policy = remat_policy
         total = sum(cfg.depths)
         dpr = [cfg.drop_path_rate * i / max(total - 1, 1)
                for i in range(total)]
@@ -202,7 +204,8 @@ class MixVisionTransformer(nn.Module):
             x, hw = getattr(self, f"patch_embed{s}")(x)
             for i, blk in enumerate(getattr(self, f"block{s}")):
                 u = None if droppath is None else droppath[s - 1][i]
-                x = maybe_checkpoint(blk, x, hw, u, remat=self.remat)
+                x = maybe_checkpoint(blk, x, hw, u, remat=self.remat,
+                                     policy=self.remat_policy)
             x = tokens_to_map(getattr(self, f"norm{s}")(x), hw)
             outs.append(x)
         return outs

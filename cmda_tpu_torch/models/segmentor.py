@@ -69,6 +69,19 @@ class SegmentorConfig:
     head_batched_train: bool = False
 
 
+def check_model_options(cfg: SegmentorConfig):
+    """Raise ``NotImplementedError`` for an option the port cannot honour:
+    ``scan_split_transpose`` and ``scan_unroll_short`` schedule the JAX
+    package's ``lax.scan`` over a stage's blocks, and the port runs its
+    blocks as a Python loop, with no scan to schedule."""
+    for name in ("scan_split_transpose", "scan_unroll_short"):
+        if getattr(cfg, name):
+            raise NotImplementedError(
+                f"model.{name}=True is a lax.scan schedule option of the JAX "
+                "package; the port runs each stage's blocks as a loop, with "
+                "no scan (ROADMAP C4)")
+
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 OUTPUT_KEYS = {"fusion": "fusion_output", "image": "image_output",
                "events": "events_output", "isr": "img_self_res_output"}
@@ -120,13 +133,18 @@ class FusionEncoderDecoder(nn.Module):
     def __init__(self, cfg: SegmentorConfig = SegmentorConfig(),
                  dtype: str = "float32"):
         super().__init__()
+        check_model_options(cfg)
         self.cfg = cfg
         self.dtype = DTYPES[dtype]
         mit_cfg = MIT_VARIANTS[cfg.backbone]
         mit_cfg = type(mit_cfg)(**{**mit_cfg.__dict__,
                                    "drop_path_rate": cfg.drop_path_rate})
-        self.backbone_image = MixVisionTransformer(mit_cfg, remat=cfg.remat)
-        self.backbone_events = MixVisionTransformer(mit_cfg, remat=cfg.remat)
+        # the remat policy reaches the two encoders, as in the JAX
+        # segmentor; its fusion modules rematerialise whole blocks
+        self.backbone_image = MixVisionTransformer(
+            mit_cfg, remat=cfg.remat, remat_policy=cfg.remat_policy)
+        self.backbone_events = MixVisionTransformer(
+            mit_cfg, remat=cfg.remat, remat_policy=cfg.remat_policy)
         self.fusion_module = build_fusion_module(
             cfg.fusion, mit_cfg.embed_dims, remat=cfg.remat)
         self.fusion_isr_module = build_fusion_module(
@@ -294,11 +312,14 @@ class EncoderDecoder(nn.Module):
     def __init__(self, cfg: SegmentorConfig = SegmentorConfig(),
                  dtype: str = "float32"):
         super().__init__()
+        check_model_options(cfg)
         self.cfg = cfg
         self.dtype = DTYPES[dtype]
         mit_cfg = MIT_VARIANTS[cfg.backbone]
         mit_cfg = type(mit_cfg)(**{**mit_cfg.__dict__,
                                    "drop_path_rate": cfg.drop_path_rate})
+        # full-block remat whatever remat_policy says: the JAX
+        # EncoderDecoder passes its encoder ``remat`` alone
         self.backbone = MixVisionTransformer(mit_cfg, remat=cfg.remat)
         self.decode_head = DAFormerHead(cfg.head)
 
@@ -351,6 +372,7 @@ class EventsEncoderDecoder(EncoderDecoder):
     def __init__(self, cfg: SegmentorConfig = SegmentorConfig(),
                  dtype: str = "float32", in_chans: int = 6):
         nn.Module.__init__(self)
+        check_model_options(cfg)
         self.cfg = cfg
         self.dtype = DTYPES[dtype]
         mit_cfg = MIT_VARIANTS[cfg.backbone]

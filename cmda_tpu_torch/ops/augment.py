@@ -168,9 +168,10 @@ def gaussian_blur(img: torch.Tensor, sigma: torch.Tensor,
 
     def kernel_1d(k):
         half = (k - 1) // 2
-        xs = torch.arange(-half, half + 1, dtype=torch.float32,
-                          device=img.device)
-        w = torch.exp(-0.5 * (xs / sigma) ** 2)
+        # float32, or float64 for a float64 image
+        xs = torch.arange(-half, half + 1, device=img.device,
+                          dtype=torch.promote_types(img.dtype, torch.float32))
+        w = torch.exp(-0.5 * (xs / sigma.to(xs.dtype)) ** 2)
         return w / w.sum()
 
     c = img.shape[-1]

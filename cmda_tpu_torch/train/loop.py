@@ -15,8 +15,9 @@ reference mmseg/apis/train.py:39-131 and its hooks).
   written to a temporary name and renamed, so a cut run never leaves a
   partial checkpoint.
 * ``TrainLoop.run``: per iteration the debug snapshot (before the step, on
-  its draws), the step, the log record, the checkpoint and the evaluation,
-  in that order. The batches reach the step through the loader's worker
+  its draws), the step, the log record (the step's logs, the backbone's
+  ``lr`` and, with the events/ISR coin, ``random_choice_thres``), the
+  checkpoint and the evaluation, in that order. The batches reach the step through the loader's worker
   threads, the bf16 wire encoding (``data.wire_bf16``) and the pinned,
   asynchronous device feed (``data.device_prefetch`` batches ahead). The
   logs are fetched in one device-to-host copy per logged iteration.
@@ -340,6 +341,8 @@ class TrainLoop:
                     vals = torch.stack([logs[k].float() for k in keys]).cpu()
                     now = time.perf_counter()
                     rec = dict(zip(keys, vals.tolist()))
+                    rec.update(self._schedule_values(state, it))
+                    rec = dict(sorted(rec.items()))
                     rec.update(iter=it + 1,
                                time=(now - t_last) / cfg.log_interval,
                                data_time=data_time)
@@ -362,6 +365,17 @@ class TrainLoop:
             loader.close()
         self.state = state
         return state
+
+    def _schedule_values(self, state: DACSTrainState, it: int) -> dict:
+        """The schedules' values at iteration ``it`` (0-based): the
+        backbone's ``lr`` (the head's is ``optim.head_lr_mult`` times it)
+        and, where the step draws the events/ISR coin, its
+        ``random_choice_thres``. A segmented run's log shows by them that
+        its horizon is the whole run's."""
+        out = {"lr": state.schedules["backbone"](it)}
+        if self.trainer.has_events:
+            out["random_choice_thres"] = self.trainer._choice_thres(it)
+        return out
 
     def _prune_checkpoints(self, max_keep: int):
         """Keep the newest ``max_keep`` ``iter_<n>.pth`` (the reference's

@@ -150,7 +150,7 @@ from ..models.common import Conv2d, Linear
 from ..models.cyclegan import ResnetGenerator, frozen_generator
 from ..models.common import init_weights
 from ..models.segmentor import (EncoderDecoder, FusionEncoderDecoder,
-                                ForwardDraws)
+                                ForwardDraws, check_model_options)
 from ..ops.augment import (IsrNoiseDraws, add_noise_on_isr, class_mix_mask,
                            isr_noise_draws, jitter_factors,
                            maybe_color_jitter_normalized, maybe_gaussian_blur,
@@ -277,6 +277,7 @@ class DACSTrainer:
 
     @staticmethod
     def _check_supported(cfg):
+        check_model_options(cfg.model)
         if cfg.model.train_type not in TRAIN_TYPES:
             raise NotImplementedError(
                 f"model.train_type={cfg.model.train_type!r} is not ported "

@@ -24,6 +24,7 @@ logs of each step rtol 1e-4; the states as ``_assert_steps_close`` says
 (test_torch_train.py's rule where the parameters are still equal, the
 parameter rule after step 3).
 """
+import copy
 import math
 
 import numpy as np
@@ -302,6 +303,80 @@ def _batches(n, b, seed, with_target=True):
     return out
 
 
+def _float64_state(tstate):
+    """A float64 copy of a port train state (the student, its teacher,
+    the generator and the frozen ImageNet encoder; AdamW follows its
+    parameters), each model computing in float64."""
+    s64 = copy.deepcopy(tstate)
+    for m in (s64.model, s64.ema_model, s64.cyclegan, s64.imnet):
+        if m is not None:
+            m.double()
+            if hasattr(m, "dtype"):
+                m.dtype = torch.float64
+    for st in s64.optimizer.state.values():
+        for k, v in st.items():
+            if k != "step" and v.is_floating_point():
+                st[k] = v.double()
+    return s64
+
+
+def _float64_steps(trainer, s64, batches, draws, layout):
+    """The port's steps on ``s64`` in float64 (its float32 casts, the norm
+    statistics, the losses and resizes, kept in float64) -> the state after
+    the last step in the JAX layout."""
+    def double(tree):
+        return {k: double(v) if isinstance(v, dict) else
+                v.astype(np.float64) if v.dtype == np.float32 else v
+                for k, v in tree.items()}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.Tensor, "float", lambda self: self.double())
+        for batch, d in zip(batches, draws, strict=True):
+            s64, _ = trainer.train_step(s64, double(batch), d)
+    return train_state_to_numpy(s64, layout)
+
+
+# AdamW's moments after step 3 against a float64 run of the port (ROADMAP
+# C3; as test_torch_zoo.py's OrgDACS-on-ResNet test holds the moments):
+# each leaf to MOMENT_LEAF_RTOL of its own largest in the float64 run and
+# to MOMENT_GROUP_RTOL of its group's largest. A missing or reversed
+# gradient is 1 or 2 of its leaf's largest away.
+MOMENT_LEAF_RTOL = 1e-1
+MOMENT_GROUP_RTOL = 1e-2
+
+
+def _moment_misses(got, ref, flip=False):
+    """The (part, moment, leaf, diff) of ``got``'s AdamW moments outside
+    the tolerances from ``ref``'s (states in the JAX layout); ``flip``
+    negates ``got``'s first moments (a reversed gradient)."""
+    misses = []
+    for part in ("head", "backbone"):
+        for m in ("mu", "nu"):
+            flat = dict(jax.tree_util.tree_leaves_with_path(
+                got["opt"][part][m]))
+            leaves = jax.tree_util.tree_leaves_with_path(ref["opt"][part][m])
+            top = max(float(np.abs(np.asarray(r)).max()) for _, r in leaves)
+            for k, r in leaves:
+                r = np.asarray(r, np.float64)
+                g = np.asarray(flat[k], np.float64)
+                if flip and m == "mu":
+                    g = -g
+                diff = float(np.abs(g - r).max())
+                if (diff > MOMENT_LEAF_RTOL * float(np.abs(r).max())
+                        or diff > MOMENT_GROUP_RTOL * top):
+                    misses.append((part, m, jax.tree_util.keystr(k), diff))
+    return misses
+
+
+def _assert_moments_match_float64(states, f64):
+    """Both packages' float32 moments after step 3 against the float64
+    run's; the port's with its first moments negated must miss."""
+    ref_jax, got = states[3]
+    assert f64["step"] == 3
+    assert not _moment_misses(got, f64)
+    assert not _moment_misses(ref_jax, f64)
+    assert len(_moment_misses(got, f64, flip=True)) > 10
+
+
 @pytest.fixture(scope="module")
 def dacs_image_steps():
     """Three DACSImage steps with isrd2isrn of both packages from one state
@@ -314,21 +389,25 @@ def dacs_image_steps():
     tstate = ttr.init_state(cyclegan_state_dict=cyclegan_to_state_dict(cyc))
     _zero_droppath(tstate.model)
     load_jax_train_state(tstate, _jax_state_numpy(jstate))
+    s64 = _float64_state(tstate)
     jstep = jax.jit(jtr.train_step)
     base = jax.random.PRNGKey(62)
     layout = {"params": jstate.params, "batch_stats": jstate.batch_stats}
-    logs, states = [], {}
-    for step, batch in enumerate(_batches(3, 2, 63, with_target=False)):
+    logs, states, all_draws = [], {}, []
+    batches = _batches(3, 2, 63, with_target=False)
+    for step, batch in enumerate(batches):
         jstate, jl = jstep(jstate, jax.tree.map(jnp.asarray, batch), base)
         draws = tstate.model.new_draws(
             2, generator=torch.Generator().manual_seed(step),
             device=torch.device("cpu"))
+        all_draws.append(draws)
         tstate, tl = ttr.train_step(tstate, batch, draws)
         logs.append(({k: float(v) for k, v in jl.items()},
                      {k: float(v) for k, v in tl.items()}))
         states[step + 1] = (_jax_state_numpy(jstate),
                             train_state_to_numpy(tstate, layout))
-    return logs, states, jcfg
+    f64 = _float64_steps(ttr, s64, batches, all_draws, layout)
+    return logs, states, jcfg, f64
 
 
 def _assert_steps_close(states, cfg):
@@ -379,12 +458,21 @@ def test_dacs_image_steps_match_jax(dacs_image_steps):
     the float32 runs' moments after step 3 move by 1.4e-4 (JAX) and 2.0e-2
     (the port) of a leaf's largest, from such sign flips at step 2 in
     other leaves in each; after step 1 by 1.8e-5 and 8.1e-6."""
-    logs, states, cfg = dacs_image_steps
+    logs, states, cfg = dacs_image_steps[:3]
     for jl, tl in logs:
         assert set(jl) == {"loss", "src/loss_seg", "src/acc_seg"}
         _assert_logs_close(jl, tl)
     # no EMA in DACSImage: the teacher stays the initial student in both
     _assert_steps_close(states, cfg)
+
+
+def test_dacs_image_moments_match_float64(dacs_image_steps):
+    """AdamW's moments after step 3, JAX's and the port's, against a
+    float64 run of the port from the same state, batches and draws: each
+    leaf to 1e-1 of its largest, 1e-2 of its group's; reversed first
+    moments miss."""
+    _, states, _, f64 = dacs_image_steps
+    _assert_moments_match_float64(states, f64)
 
 
 def _org_draws(base, step, batch, cfg, fwd):
@@ -439,11 +527,13 @@ def org_dacs_steps():
         def jstep_recorded(state, batch, rng):
             rec.clear()
             return jtr.train_step(state, batch, rng), list(rec)
+        s64 = _float64_state(tstate)
         jstep = jax.jit(jstep_recorded)
         base = jax.random.PRNGKey(73)
         layout = {"params": jstate.params, "batch_stats": jstate.batch_stats}
-        logs, fwd_draws, states = [], [], {}
-        for step, batch in enumerate(_batches(3, b, 74)):
+        logs, fwd_draws, states, all_draws = [], [], {}, []
+        batches = _batches(3, b, 74)
+        for step, batch in enumerate(batches):
             if step == 0:
                 student0 = {k: v.detach().clone() for k, v in
                             tstate.model.named_parameters()}
@@ -454,6 +544,7 @@ def org_dacs_steps():
             fwd_draws.append(drawn)
             draws = _org_draws(base, step, b, jcfg,
                                _forward_draws(drawn[:5], b))
+            all_draws.append(draws)
             tstate, tl = ttr.train_step(tstate, batch, draws)
             logs.append(({k: float(v) for k, v in jl.items()},
                          {k: float(v) for k, v in tl.items()}))
@@ -468,7 +559,9 @@ def org_dacs_steps():
                       tuple(new.dropout_keep.shape))
     finally:
         mp.undo()
-    return (logs, states, jcfg, fwd_draws, student0, teacher0, new_shapes)
+    f64 = _float64_steps(ttr, s64, batches, all_draws, layout)
+    return (logs, states, jcfg, fwd_draws, student0, teacher0, new_shapes,
+            f64)
 
 
 def test_org_dacs_logs_match_jax(org_dacs_steps):
@@ -487,6 +580,13 @@ def test_org_dacs_logs_match_jax(org_dacs_steps):
 def test_org_dacs_state_matches_jax(org_dacs_steps):
     _, states, cfg = org_dacs_steps[:3]
     _assert_steps_close(states, cfg)
+
+
+def test_org_dacs_moments_match_float64(org_dacs_steps):
+    """As ``test_dacs_image_moments_match_float64``, for OrgDACS with its
+    feature distance, drop-path and dropout."""
+    _, states = org_dacs_steps[:2]
+    _assert_moments_match_float64(states, org_dacs_steps[7])
 
 
 def test_org_dacs_forwards_share_draws_and_drop(org_dacs_steps):

@@ -54,7 +54,19 @@ def test_import_loads_no_jax_and_no_cmda_tpu():
             "cmda_tpu_torch.tools.train_cyclegan",
             "cmda_tpu_torch.tools.create_cityscapes_image_change",
             "cmda_tpu_torch.models.heads", "cmda_tpu_torch.models.resnet",
-            "cmda_tpu_torch.tools.run_experiments"} <= set(
+            "cmda_tpu_torch.tools.run_experiments",
+            "cmda_tpu_torch.utils.profiling",
+            "cmda_tpu_torch.tools.export_model",
+            "cmda_tpu_torch.tools.bench_infer",
+            "cmda_tpu_torch.tools.bench_ce",
+            "cmda_tpu_torch.tools.bench_scan",
+            "cmda_tpu_torch.tools.profile_step",
+            "cmda_tpu_torch.tools.analyze_trace",
+            "cmda_tpu_torch.tools.train_chunked",
+            "cmda_tpu_torch.tools.merge_segment_logs",
+            "cmda_tpu_torch.tools.checkpoint_tools",
+            "cmda_tpu_torch.tools.print_config",
+            "cmda_tpu_torch.tools.analyze_logs"} <= set(
                 loaded)
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
